@@ -1,0 +1,123 @@
+"""Receiver-sorted CSR rows cut into segments: the summation order shared by
+the CUDA kernels and their plain versions.
+
+A row's edges (a run of equal receivers) are cut into consecutive segments
+of at most ``ROW_SEGMENT`` edges.  Every row sum in the port is
+taken in this order: each segment's terms added one by one in edge order,
+then the row's segment sums added in segment order.  The CUDA kernels give
+one warp to one segment, so a power-law hub with millions of in-edges
+spreads over thousands of warps instead of serialising onto one; the plain
+versions add in the same order, so kernel and plain version agree bit for
+bit.  A row with at most ``ROW_SEGMENT`` edges is one segment, and its sum
+is the plain sequential sum (what ``jax.ops.segment_sum`` computes on the
+CPU).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+ROW_SEGMENT = 2048
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RowSegments:
+    """Segment tables of one receiver-sorted edge array, on a device.
+
+    Only the rows that own an edge are listed, so an edge subset (one
+    color's edges) costs tables of its own size, not of the vertex count.
+    ``row_ids`` [R] i32: the listed rows, ascending; ``row_seg`` [R+1] i32:
+    listed row i owns segments ``[row_seg[i], row_seg[i+1])``; ``seg_beg``
+    [S+1] i32: segment k covers edges ``[seg_beg[k], seg_beg[k+1])``;
+    ``seg_row`` [S] i32: its row.  ``n_rows`` is the output's row count and
+    ``n_edges`` the edges the tables cover (a kernel reads senders and
+    weights up to there).
+    """
+
+    n_rows: int
+    n_edges: int
+    n_listed: int
+    n_segments: int
+    row_ids: torch.Tensor
+    row_seg: torch.Tensor
+    seg_beg: torch.Tensor
+    seg_row: torch.Tensor
+
+    @staticmethod
+    def build(receivers: np.ndarray, n_rows: int, device) -> "RowSegments":
+        """Tables for sorted ``receivers`` (real edges only, all
+        < ``n_rows``)."""
+        row_ids, row_seg, seg_beg, seg_row = segment_tables(receivers)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+                device)
+
+        return RowSegments(n_rows=int(n_rows), n_edges=int(receivers.size),
+                           n_listed=int(row_ids.size),
+                           n_segments=int(seg_row.size), row_ids=t(row_ids),
+                           row_seg=t(row_seg), seg_beg=t(seg_beg),
+                           seg_row=t(seg_row))
+
+    @functools.cached_property
+    def edge_segment(self) -> torch.Tensor:
+        """[E] i64: the segment of each edge (for the plain versions)."""
+        return torch.repeat_interleave(
+            torch.arange(self.n_segments, device=self.seg_beg.device),
+            (self.seg_beg[1:] - self.seg_beg[:-1]).long())
+
+
+def segment_tables(receivers: np.ndarray):
+    """Host tables ``(row_ids [R], row_seg [R+1], seg_beg [S+1], seg_row
+    [S])`` for sorted ``receivers`` [E]; O(E), whatever the row count."""
+    r = np.asarray(receivers, np.int64)
+    e = r.size
+    row_beg = np.flatnonzero(np.diff(r, prepend=-1)) if e else \
+        np.zeros(0, np.int64)
+    row_ids = r[row_beg]
+    row_len = np.diff(np.append(row_beg, e))
+    n_seg_row = -(-row_len // ROW_SEGMENT)
+    row_seg = np.concatenate([[0], np.cumsum(n_seg_row)]).astype(np.int64)
+    local = np.arange(row_seg[-1], dtype=np.int64) \
+        - np.repeat(row_seg[:-1], n_seg_row)
+    seg_beg = np.concatenate([np.repeat(row_beg, n_seg_row)
+                              + local * ROW_SEGMENT, [e]])
+    return row_ids, row_seg, seg_beg, np.repeat(row_ids, n_seg_row)
+
+
+def n_real_edges(receivers: torch.Tensor, n_rows: int) -> int:
+    """Edges before the padding: pad receivers (>= n_rows) sort last."""
+    return int(torch.searchsorted(
+        receivers.contiguous(),
+        torch.tensor([n_rows], dtype=receivers.dtype,
+                     device=receivers.device)))
+
+
+def row_segments_of(receivers: torch.Tensor, n_rows: int) -> RowSegments:
+    """Tables for sorted ``receivers`` on their device; entries >= ``n_rows``
+    are pads (they sort last) and are left out."""
+    recv = receivers.cpu().numpy()
+    return RowSegments.build(recv[:np.searchsorted(recv, n_rows)], n_rows,
+                             receivers.device)
+
+
+def segmented_row_sum(terms: torch.Tensor, receivers: torch.Tensor,
+                      n_rows: int,
+                      segments: Optional[RowSegments] = None) -> torch.Tensor:
+    """Plain PyTorch row sums ``out[v] = Σ_{recv(e)=v} terms[e]`` over
+    sorted ``receivers`` (all < ``n_rows``), added in the segment order of
+    this module with sequential ``index_add_`` — the order of the kernels.
+    ``segments`` (the receivers' tables, if the caller holds them) saves
+    recomputing the cut."""
+    if segments is None:
+        segments = row_segments_of(receivers, n_rows)
+    partial = torch.zeros((segments.n_segments,) + terms.shape[1:],
+                          dtype=terms.dtype, device=terms.device)
+    partial.index_add_(0, segments.edge_segment, terms)
+    out = torch.zeros((n_rows,) + terms.shape[1:], dtype=terms.dtype,
+                      device=terms.device)
+    return out.index_add_(0, segments.seg_row.long(), partial)
