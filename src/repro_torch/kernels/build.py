@@ -24,12 +24,13 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gas_gather_combine.cu", "gas_scatter_reschedule.cu",
-           "segment_sum_sorted.cu")
+           "segment_sum_sorted.cu", "embedding_bag.cu", "flash_attention.cu")
 HEADERS = ("row_reduce.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_int64, ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p (a 64-bit value).
 SIGNATURES = {
     # feat, w, snd, row_ids, row_seg, seg_beg, seg_row, block_active,
@@ -41,6 +42,10 @@ SIGNATURES = {
     # msgs, row_ids, row_seg, seg_beg, partial, out, n_rows, n_listed,
     # n_seg, d, f64, stream
     "segment_sum_sorted": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # table, ids, out, n_bags, bag, d, rows, fields, bf16, vec_ok, stream
+    "embedding_bag": (_P,) * 3 + (_L, _I, _I, _L) + (_I,) * 3 + (_P,),
+    # q, k, v, out, B, S, T, H, KV, d, causal, window, scale, bf16, stream
+    "flash_attention": (_P,) * 4 + (_I,) * 8 + (_F, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
