@@ -9,14 +9,15 @@ line:
 
 1. Kernel parity and timing.  Each kernel (K1 gather⊕combine, K2
    scatter/reschedule, K3 sorted segment sum, K4 embedding bag, K5 flash
-   attention) is held against its plain PyTorch version on the card, on
-   edge cases and at the shapes its path gives it (max relative error
-   ≤ 2e-5 in float32; in bfloat16 one bfloat16 ulp of the largest output,
-   2^-7 relative, since kernel and plain version both compute in float32
-   and round once), and timed beside its plain version, one PyTorch
-   library call for the same function, and its bound.  K4 and K5 are
-   timed at their paths' shapes inside phases 4 and 5, where the model's
-   tensors live.
+   attention: its tensor-core kernel in bf16 at d 64 and 128, its SIMT
+   kernel otherwise) is held against its plain PyTorch version on the
+   card, on edge cases and at the shapes its path gives it (K1 equal to
+   the bit, since it adds in the plain version's order; the others within
+   a max relative error of 2e-5 in float32, and in bfloat16 one bfloat16
+   ulp of the largest output, 2^-7 relative), and timed beside its plain
+   version, one PyTorch library call for the same function, and its
+   bound.  K4 and K5 are timed at their paths' shapes inside phases 4 and
+   5, where the model's tensors live.
 2. The main path: PageRank on ChromaticEngine (fused) over a synthetic
    power-law graph at the scale of SNAP soc-LiveJournal1 (4.85 M vertices),
    run to convergence and checked against a float64 power iteration on the
@@ -47,6 +48,7 @@ from __future__ import annotations
 import argparse
 import json
 import multiprocessing
+import re
 import subprocess
 import sys
 import time
@@ -63,7 +65,8 @@ F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12          # H100 SXM bf16 dense tensor cores
 REL_TOL = 2e-5
 # bf16: kernel and plain version compute in f32 and round once, so they
-# differ by at most one bf16 ulp (2^-7 relative) of the largest output
+# differ by at most one bf16 ulp (2^-7 relative) of the largest output (of
+# each row, for K5)
 BF16_REL_TOL = 2.0 ** -7
 FIXED_POINT_TOL = 1e-5
 ORACLE_L1_TOL = 1e-3
@@ -109,6 +112,33 @@ def expect(cond: bool, what: str) -> None:
         failures.append(what)
 
 
+def log_clocks(label: str) -> None:
+    """The card's SM clock against its maximum, power and throttle reasons
+    beside a measurement (a card held below its clock runs slower)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,"
+         "power.draw,power.limit,temperature.gpu,"
+         "clocks_throttle_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"clocks {label}: {out}")
+
+
+def log_ptxas(text: str) -> None:
+    """One line a kernel from ptxas's -v report: registers, spills, stack
+    and shared memory."""
+    name, props = None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, props = m.group(1), ""
+        elif name and "spill" in line:
+            props = line.strip()
+        elif name and "Used" in line:
+            log(f"ptxas {name[:70]}: {line.split(':', 1)[1].strip()}; "
+                f"{props}")
+            name = None
+
+
 def sync_time(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -143,22 +173,46 @@ def rel_err(k: torch.Tensor, p: torch.Tensor) -> tuple:
     return abs_err, abs_err / scale
 
 
+def row_rel_err(k: torch.Tensor, p: torch.Tensor) -> tuple:
+    """(max abs error, max over rows of a row's max abs error over that
+    row's max |plain|), a row being the last axis (one query and head of an
+    attention output); a row the plain version leaves zero must be zero."""
+    if k.numel() == 0:
+        return 0.0, 0.0
+    err = (k.double() - p.double()).abs().flatten(0, -2).amax(-1)
+    scale = p.double().abs().flatten(0, -2).amax(-1)
+    rel = torch.where(scale > 0, err / scale.clamp_min(1e-300),
+                      torch.where(err > 0, float("inf"), 0.0))
+    return float(err.max()), float(rel.max())
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: kernels
 # ---------------------------------------------------------------------------
 
 class KernelRecord:
-    def __init__(self, name, source, replaces):
+    def __init__(self, name, source, replaces, row_scale=False):
+        """``row_scale``: the relative error takes each output row's own
+        scale (``row_rel_err``), not the largest output's."""
         self.name, self.source, self.replaces = name, source, replaces
+        self.row_scale = row_scale
         self.max_abs = 0.0
         self.max_rel = 0.0
         self.times = {}
         self.launches = 0
 
-    def compare(self, what, k, p):
-        a, r = rel_err(k, p)
+    def compare(self, what, k, p, bitwise=False):
+        """``bitwise``: the kernel adds in the plain version's order, so the
+        two must be equal to the bit (K1)."""
+        a, r = (row_rel_err if self.row_scale else rel_err)(k, p)
         self.max_abs = max(self.max_abs, a)
         self.max_rel = max(self.max_rel, r)
+        if bitwise:
+            same = k.shape == p.shape and torch.equal(
+                k.view(torch.int32), p.view(torch.int32))
+            expect(same, f"{self.name} {what}: equal to the bit (max abs "
+                   f"diff {a:.3g})")
+            return
         tol = BF16_REL_TOL if p.dtype == torch.bfloat16 else REL_TOL
         expect(r <= tol, f"{self.name} {what}: rel err {r:.3g} "
                f"(tol {tol:.3g})")
@@ -200,10 +254,33 @@ def row_ptr_bytes(n: int) -> int:
     return 4 * (n + 1)
 
 
+def tile_receivers():
+    """(name, receivers, n): rows laid out on K1's tiles (kernels/csr.py):
+    a tile's edges exactly at its capacity and one edge under; segments at
+    the short/long threshold and one edge either side; a tile of one-edge
+    rows; a row split over 3 segments between short rows."""
+    from repro_torch.kernels.csr import (ROW_SEGMENT, SHORT_SEGMENT,
+                                         TILE_WINDOW)
+    s, w = SHORT_SEGMENT, TILE_WINDOW
+    # rows of s edges up to w - 1 edges, then one that starts at w - 1:
+    # the tile holds w - 1 + s edges (its capacity), or one less
+    fill = [s] * ((w - 1) // s) + [(w - 1) % s]
+    out = []
+    for name, lens in (("tile at capacity", fill + [s, s]),
+                       ("tile at capacity - 1", fill + [s - 1, s]),
+                       ("threshold", [s - 1, s, s + 1, 3, s + 1, s, s - 1]),
+                       ("one-edge rows", [1] * 700),
+                       ("3-segment row", [5, 2 * ROW_SEGMENT + 7, 4, 1])):
+        lens = [x for x in lens if x > 0]
+        out.append((name, np.repeat(np.arange(len(lens)), lens)
+                    .astype(np.int32), len(lens)))
+    return out
+
+
 def edge_cases(rng):
     """(name, senders, receivers, n, d): the cases of the JAX package's
-    kernel tests, a hub longer than one row segment, and the widths of the
-    main paths."""
+    kernel tests, a hub longer than one row segment, K1's tile layouts,
+    and the widths of the main paths."""
     from repro_torch.kernels.csr import ROW_SEGMENT
 
     def skewed(n, e):
@@ -223,6 +300,9 @@ def edge_cases(rng):
     hub = hub.astype(np.int32)
     cases.append(("hub", rng.integers(0, 300, hub.size).astype(np.int32),
                   hub, 300, 1))
+    for name, recv, n in tile_receivers():
+        cases.append((name, rng.integers(0, n, recv.size).astype(np.int32),
+                      recv, n, 1))
     for d in (1, 5, 16, 128):
         cases.append((f"pareto D={d}", *skewed(3000, 40000), 3000, d))
     return cases
@@ -232,8 +312,7 @@ def kernel_parity_cases(recs, rng):
     from repro_torch.kernels.gas.ops import (EdgeSet, active_row_blocks,
                                              gather_combine,
                                              scatter_reschedule)
-    from repro_torch.kernels.gas.ref import (gather_combine_ref,
-                                             scatter_reschedule_ref)
+    from repro_torch.kernels.gas.ref import scatter_reschedule_ref
     from repro_torch.kernels.segsum.ops import segment_sum_sorted
     from repro_torch.kernels.segsum.ref import segment_sum_sorted_ref
     k1, k2, k3 = recs[:3]
@@ -244,14 +323,16 @@ def kernel_parity_cases(recs, rng):
             rng.normal(size=(n, d)).astype(np.float32)).cuda()
         w = torch.from_numpy(rng.normal(size=e).astype(np.float32)).cuda()
         w_pad = torch.nn.functional.pad(w, (0, es.senders.shape[0] - e))
+        # "alternate": every other 128-row block active, so K1's tiles mix
+        # active and inactive rows
         for mname, mask in (("all", np.ones(n, bool)),
                             ("30%", rng.random(n) < 0.3),
+                            ("alternate", np.arange(n) // 128 % 2 == 0),
                             ("none", np.zeros(n, bool))):
             blk = active_row_blocks(torch.from_numpy(mask).cuda())
             k = gather_combine(feat, w, es, block_active=blk)
-            p = gather_combine_ref(feat, w_pad, es.senders, es.receivers, n,
-                                   blk)
-            k1.compare(f"{name} mask={mname}", k, p)
+            p = k1_plain_on_cpu(feat, w_pad, es, blk)
+            k1.compare(f"{name} mask={mname}", k.cpu(), p, bitwise=True)
             if mname == "none":
                 expect(float(k.abs().sum()) == 0.0,
                        f"K1 {name}: all-inactive mask gives exact zeros")
@@ -273,6 +354,15 @@ def kernel_parity_cases(recs, rng):
             k = segment_sum_sorted(msgs, recv_t, n, segments=es.segments)
             p = segment_sum_sorted_ref(msgs, recv_t, n)
             k3.compare(f"{name} {dt.__name__}", k, p)
+
+
+def k1_plain_on_cpu(feat, w_pad, es, blk):
+    """K1's plain version on the host: its sequential ``index_add_`` fixes
+    the order K1 reproduces (on the card ``index_add_`` adds with atomics,
+    in no fixed order)."""
+    from repro_torch.kernels.gas.ref import gather_combine_ref
+    return gather_combine_ref(feat.cpu(), w_pad.cpu(), es.senders.cpu(),
+                              es.receivers.cpu(), es.n_vertices, blk.cpu())
 
 
 def csr_matrix(es, values):
@@ -297,14 +387,19 @@ def time_k1(rec, es, w, rng):
                                             es.segments, blk)
     run_p = lambda: gather_combine_ref(feat, w_pad, es.senders, es.receivers,
                                        n, blk, segments=es.segments)
-    rec.compare("main shape", run_k(), run_p())
+    rec.compare("main shape", run_k().cpu(),
+                k1_plain_on_cpu(feat, w_pad, es, blk), bitwise=True)
     a = csr_matrix(es, w)
     run_l = lambda: torch.sparse.mm(a, feat)
     rec.against_library(run_k(), run_l())
+    tiles = es.segments.tiles
     rec.time(run_k, run_p, run_l,
              4 * (2 * e + 2 * n * d + es.n_row_blocks) + row_ptr_bytes(n),
              2 * e * d, f"N={n} D={d} E={e} segments="
-             f"{es.segments.n_segments} (largest color)")
+             f"{es.segments.n_segments} (largest color) tiles={tiles.n_tiles}"
+             f" (partial {tiles.n_partial}) multi rows={tiles.n_multi}")
+    profile_window("K1 main shape (10 calls)",
+                   lambda: [run_k() for _ in range(10)], "k1_profile.txt")
 
 
 def time_k2(rec, es, rng):
@@ -454,14 +549,21 @@ def main_path(recs, rng):
         f"fused={eng.use_fused}")
     expect(eng.use_fused, "main: PageRank takes the fused path")
 
+    # K1's tile tables, built on its first launch, built here (set-up)
+    t0 = time.perf_counter()
+    n_tiles = sum(es.segments.tiles.n_tiles for es in eng._color_edges)
+    log(f"main: K1 tile tables {time.perf_counter() - t0:.2f} s  "
+        f"tiles={n_tiles}")
     # K1 and K2 at the shapes this path gives them (launches not counted)
     es0 = max(eng._color_edges, key=lambda es: es.n_edges)
     w0 = graph.edge_data["w"][es0.perm].contiguous()
+    log_clocks("before K1/K2 timing")
     time_k1(recs[0], es0, w0, rng)
     time_k2(recs[1], full, rng)
     profile_steps(eng, graph)
 
     state = eng.init(graph)
+    log_clocks("before the main path's run")
     torch.cuda.reset_peak_memory_stats()
     gas_gather_combine_cuda.launches = 0
     gas_scatter_reschedule_cuda.launches = 0
@@ -672,6 +774,92 @@ ATTN_CASES = [(1, 40, 40, 2, 1, 64, True, None),
               (1, 20, 10, 1, 2, 64, False, 2),
               (2, 70, 70, 2, 2, 16, True, None),
               (1, 90, 90, 1, 3, 32, True, 16)]
+#: K5 cases for the tensor-core kernel's 128 × 128 tiles: S and T not
+#: multiples of 128, windows at 4096 and one either side (S 4500, so the
+#: window binds) and 100, G = 12 at d 128, T > S without the causal mask
+#: (with and without a window)
+ATTN_TILE_CASES = [(1, 4500, 4500, 1, 2, 128, True, 4095),
+                   (1, 4500, 4500, 1, 2, 128, True, 4096),
+                   (1, 4500, 4500, 1, 2, 128, True, 4097),
+                   (1, 1000, 1000, 2, 2, 64, True, 100),
+                   (1, 333, 333, 2, 12, 128, True, None),
+                   (2, 200, 700, 2, 2, 128, False, None),
+                   (1, 300, 1100, 1, 4, 64, False, 256)]
+
+
+#: K5 mask probes (B, S, T, KV, group, d, W) at the tile shapes: each is
+#: run causal under windows W - 1, W and W + 1, and causal and not without
+#: a window (``mask_probe``)
+ATTN_PROBE_CASES = [(1, 4500, 4500, 1, 2, 128, 4096),
+                    (1, 1000, 1000, 2, 2, 64, 100),
+                    (1, 333, 333, 2, 12, 128, 128)]
+PROBE_GAP = 12.0       # logits from a row's top key to the next
+PROBE_DIFF = 0.5       # a moved row's least max abs change (it moves ~1)
+
+
+def mask_probe(b, s, t, kv, group, d, window):
+    """q, k, v (f32 numpy) that make a mask's edge show in every row.  Query
+    i scores the key at its target position far above every other key
+    (PROBE_GAP logits over the keys one either side, more further off):
+    target i - window, the key just outside the window, where the window
+    binds (i >= window); else i + 1, the key just past the diagonal.  v is
+    one-hot by key position (mod d), so a row comes out as the one-hot of
+    its top admitted key, and admitting or dropping a key at the mask's edge
+    moves it by about 1.  Scores come from rotations of the positions at
+    d / 2 frequencies from 0.5 down to 1 / (4T) radians a step."""
+    f = d // 2
+    theta = 0.5 * (1.0 / (4 * t)) ** (np.arange(f) / (f - 1))
+    amp = np.sqrt(PROBE_GAP * np.sqrt(d) / np.sum(1 - np.cos(theta)))
+
+    def phi(x):
+        a = np.asarray(x, np.float64)[:, None] * theta
+        return amp * np.concatenate([np.cos(a), np.sin(a)], 1)
+
+    i = np.arange(s)
+    target = np.where(i >= window, i - window, i + 1)
+    q = np.broadcast_to(phi(target)[None, :, None], (b, s, kv * group, d))
+    k = np.broadcast_to(phi(np.arange(t))[None, :, None], (b, t, kv, d))
+    v = np.zeros((b, t, kv, d))
+    v[:, np.arange(t), :, np.arange(t) % d] = 1.0
+    return [np.ascontiguousarray(x, np.float32) for x in (q, k, v)]
+
+
+def probe_cases(k5):
+    """K5 on the mask probes, in bf16 and f32: each run within the tolerance
+    of its plain version row by row; windows W - 1, W and W + 1 give
+    different answers on every row where they bind, and so do causal and
+    not on every row that probes the diagonal (checked on the plain
+    version, so that the probe is known to bite)."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    for b, s, t, kv, group, d, w in ATTN_PROBE_CASES:
+        qkv = mask_probe(b, s, t, kv, group, d, w)
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.from_numpy(x).to(dt).cuda() for x in qkv)
+            plain = {}
+            for causal, window in ((True, w - 1), (True, w), (True, w + 1),
+                                   (True, None), (False, None)):
+                got = flash_attention_cuda(q, k, v, causal, window)
+                want = attention_ref(q, k, v, causal, window, q_chunk=512)
+                plain[causal, window] = want.float()
+                k5.compare(f"probe B={b} S={s} T={t} KV={kv} G={group} "
+                           f"d={d} causal={causal} W={window} "
+                           f"{str(dt)[6:]}", got, want)
+
+            def moved(x, y, rows):
+                return float((x[:, rows] - y[:, rows]).abs().amax(-1).min())
+
+            edge = slice(w + 1, None)
+            windows = min(moved(plain[True, x], plain[True, y], edge)
+                          for x, y in ((w - 1, w), (w, w + 1),
+                                       (w - 1, w + 1)))
+            diag = moved(plain[True, None], plain[False, None],
+                         slice(0, min(w, t - 1)))
+            expect(min(windows, diag) >= PROBE_DIFF,
+                   f"K5 probe S={s} d={d} W={w} {str(dt)[6:]} bites: "
+                   f"windows move rows by >= {windows:.3g}, the diagonal "
+                   f"by >= {diag:.3g} (need {PROBE_DIFF})")
 
 
 def model_kernel_cases(k4, k5, rng):
@@ -692,7 +880,8 @@ def model_kernel_cases(k4, k5, rng):
                        f"{str(dt)[6:]}", embedding_bag_cuda(table, ids,
                                                             fields),
                        embedding_bag_ref(table, ids, fields))
-        for b, s, t, kv, group, d, causal, window in ATTN_CASES:
+        for b, s, t, kv, group, d, causal, window in \
+                ATTN_CASES + ATTN_TILE_CASES:
             q, k, v = (torch.from_numpy(rng.normal(size=sh)
                                         .astype(np.float32)).to(dt).cuda()
                        for sh in ((b, s, kv * group, d), (b, t, kv, d),
@@ -706,6 +895,7 @@ def model_kernel_cases(k4, k5, rng):
                 expect(float(got[:, t + window:].abs().max()) == 0.0,
                        f"K5 rows that see no key are zeros ({str(dt)[6:]}, "
                        f"causal={causal})")
+    probe_cases(k5)
 
 
 # ---------------------------------------------------------------------------
@@ -951,7 +1141,9 @@ def lm_phase(k5):
         k = apply_rope(tf._proj(h, lp["attn"]["wk"], cfg), pos,
                        cfg.rope_theta)
         v = tf._proj(h, lp["attn"]["wv"], cfg)
+        log_clocks("before K5 timing")
         time_k5(k5, q, k, v, cfg.sliding_window)
+        log_clocks("after K5 timing")
         del lp, x, h, q, k, v
 
     prefill_step(cfg, params, {"tokens": tokens[:, :PREFILL_WARMUP_S]})
@@ -1063,6 +1255,7 @@ def main() -> int:
         build.library()
         log(f"build: {time.perf_counter() - t0:.2f} s")
         (OUT_DIR / "ptxas.txt").write_text(build.build_log)
+        log_ptxas(build.build_log)
         warm_profiler()
 
         rng = np.random.default_rng(0)
@@ -1081,9 +1274,9 @@ def main() -> int:
                          "src/repro/kernels/embedding_bag/"
                          "embedding_bag.py:73"),
             KernelRecord("flash_attention",
-                         "src/repro_torch/csrc/flash_attention.cu",
+                         "src/repro_torch/csrc/flash_attention_sm90.cu",
                          "src/repro/kernels/flash_attention/"
-                         "flash_attention.py:85"),
+                         "flash_attention.py:85", row_scale=True),
         ]
         if not args.only:
             kernel_parity_cases(recs, rng)

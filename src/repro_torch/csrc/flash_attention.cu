@@ -1,5 +1,8 @@
 // K5: FlashAttention-2 forward with GQA, causal and sliding-window masks,
-// for sm_90a; inputs f32 or bf16, math in f32.
+// for sm_90a; inputs f32 or bf16, math in f32.  This file's SIMT kernel
+// serves f32 at every head dim and bf16 at d ∈ {16, 32}; bf16 at
+// d ∈ {64, 128} (the LM path) goes to the tensor-core kernel in
+// flash_attention_sm90.cu, through the same entry point below.
 //
 //   out[b, s, h] = Σ_t softmax_t(q[b,s,h]·k[b,t,h/G] / √d) v[b,t,h/G]
 //
@@ -25,8 +28,8 @@
 // are reduced over the 16 lanes of a half warp by shuffles, with no
 // shared-memory round trip.  Q, K, V and P tiles sit in shared memory as
 // f32 (rows of Q and K padded by 4 floats so that 16-byte reads of 16
-// consecutive rows fall on distinct banks); products are f32 FMAs.  This
-// is the simple version: tensor cores (mma / wgmma) and TMA come later.
+// consecutive rows fall on distinct banks); products are f32 FMAs, so f32
+// inputs keep full f32 accuracy (TF32 tensor cores would not).
 //
 // Bound on the H100: operations — 4·d flops per (query, key) pair inside
 // the mask, per head, at 989 TFLOP/s (the bf16 tensor-core rate the
@@ -35,6 +38,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -253,19 +258,31 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   return (int)cudaGetLastError();
 }
 
+// bf16 at d 64 and 128 never comes here (flash_attention_sm90.cu).
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, int B, int S, int T_len,
              int H, int KV, int d, int causal, int window, float scale, cudaStream_t s) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   switch (d) {
     case 16: return launch<16, T>(q, k, v, out, B, S, T_len, H, KV, causal, window, scale, s);
     case 32: return launch<32, T>(q, k, v, out, B, S, T_len, H, KV, causal, window, scale, s);
-    case 64: return launch<64, T>(q, k, v, out, B, S, T_len, H, KV, causal, window, scale, s);
-    case 128: return launch<128, T>(q, k, v, out, B, S, T_len, H, KV, causal, window, scale, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 64:
+      if constexpr (kF32) return launch<64, T>(q, k, v, out, B, S, T_len, H, KV, causal, window, scale, s);
+      break;
+    case 128:
+      if constexpr (kF32) return launch<128, T>(q, k, v, out, B, S, T_len, H, KV, causal, window, scale, s);
+      break;
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
+
+namespace repro_torch {
+int flash_attention_bf16_sm90(const void* q, const void* k, const void* v, void* out, int B,
+                              int S, int T_len, int H, int KV, int d, int causal, int window,
+                              float scale, cudaStream_t s);
+}  // namespace repro_torch
 
 // q [B, S, H, d], k and v [B, T, KV, d] → out [B, S, H, d], all contiguous
 // and of one dtype (bf16 != 0: bf16, else f32).  d ∈ {16, 32, 64, 128};
@@ -275,6 +292,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                int window, float scale, int bf16, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16 && (d == 64 || d == 128)) {
+    return repro_torch::flash_attention_bf16_sm90(q, k, v, out, B, S, T_len, H, KV, d, causal,
+                                                  window, scale, s);
+  }
   return bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, B, S, T_len, H, KV, d, causal, window,
                                         scale, s)
               : dispatch<float>(q, k, v, out, B, S, T_len, H, KV, d, causal, window, scale, s);

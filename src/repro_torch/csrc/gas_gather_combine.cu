@@ -7,53 +7,153 @@
 // sequential grid of (row block × max edge blocks) and combines with a
 // one-hot MXU matmul; on a power-law graph most of that grid is empty steps.
 // Here the receiver-sorted edges are CSR rows cut into segments of at most
-// ROW_SEGMENT edges (row_reduce.cuh), and
-//   pass 1: one warp per segment.  D == 1 (PageRank): lanes load 32
-//           consecutive edges at once (coalesced w and senders, gathered
-//           feat) and the ordered warp shuffle adds them in edge order.
-//           D >= 2: lanes stride over the feature columns, looping over the
-//           segment's edges in order;
-//   pass 2: the output is zeroed, then one thread per element of a listed
-//           row (a row that owns an edge of this subset) adds its row's
-//           segment sums.
-// A segment whose row lies in a 128-row block that is off in block_active
-// reads no edge, and its row stays zero — the TPU kernel's active-block
-// skipping.  The chromatic engine's per-color subsets list only that
-// color's rows, so pass 2 touches no other row.  No D padding and no
-// MAX_FEAT limit.
+// ROW_SEGMENT edges (row_reduce.cuh, kernels/csr.py), each summed in edge
+// order from 0, then a row's segments in segment order, with one rounding a
+// product and one an add: the order of the plain version, so the two agree
+// bit for bit.
 //
 // Bound on the H100: bytes.  It must read senders and weights (8 B per
 // edge), the feature table (4·D B per vertex), the row offsets (4 B per
 // row) and write the output (4·D B per row), at 3.35 TB/s; 2 flops per edge
-// and column are far below the compute roofline.  Design against it:
-// senders and weights stream coalesced, once; the feature table of a whole
-// graph at D = 1 (19 MB at 4.85 M vertices) fits in the 50 MB L2, so the
-// random gather mostly hits L2; segments cap the work of one warp, so a hub
-// no longer serialises the call.  The serial, ordered adds cost latency
-// that a tree reduction would not; they buy bit-equality with the CPU.
+// and column are far below the compute roofline.  The feature table of a
+// whole graph at D = 1 (19 MB at 4.85 M vertices) fits in the 50 MB L2, so
+// the random gather costs L2 sectors, not device memory.
+//
+// D == 1 (PageRank), the CSR-stream design (Greathouse & Daga, SC'14), with
+// every sum taken by one thread from shared memory.  The host (TileTables) cuts
+// the segments into tiles: runs of consecutive short segments (at most
+// SHORT_SEGMENT edges) of one-segment rows share a tile of at most 256 segments
+// (TILE_SEGMENTS, tied to kThreads: thread t sums the tile's segment t, so the
+// entry refuses a tile of more segments than threads) and
+// TILE_WINDOW + SHORT_SEGMENT - 1 edges; every other segment is a tile of
+// its own.  One block a tile streams the tile's edge range coalesced, every
+// thread staging w[e] · feat[snd[e]] (4 edges a round in flight) into shared
+// memory; then thread t adds segment t's products from shared memory in edge
+// order.  Every lane loads on the way in, and an add waits only on the add
+// before it (no shuffle chain: a warp a segment left ~19 of 32 lanes idle on
+// segments of ~13 edges, and a 2048-edge segment of a hub took 2048
+// shuffle-and-add steps).  The time of a launch is bounded below by its longest
+// chain of adds, so the longest tiles come first in the grid; past that, by the
+// chain of dependent loads a tile waits on (its table entries, its rows' active
+// bits, its edges, the gathered features), so 8 blocks of 256 threads share an
+// SM.  A one-segment row (nearly all rows) writes its output in that launch as
+// add_rn(0, acc), what the plain version's zeros().index_add_ gives; a row of
+// two or more segments leaves partial sums, and a second launch (combine_d1,
+// one block a listed row of that kind) stages them and adds them in segment
+// order.  Active blocks: a tile all of whose rows lie in 128-row blocks that
+// are off in block_active reads no edge; a tile that mixes active and inactive
+// rows stages all its edges (an inactive row's edges may be read), but an
+// inactive row is never written and stays an exact zero from the memset.
+//
+// D >= 2 (no main path yet): one warp per segment, lanes striding over the
+// feature columns and looping over the segment's edges in order, into
+// `partial`; then one thread per element of every listed row adds its
+// row's segment sums.  No D padding and no MAX_FEAT limit.
 #include "row_reduce.cuh"
 
 namespace {
 
 using namespace repro_torch;
 
+constexpr int kTileBatch = 4;      // edges a thread keeps in flight when staging
+constexpr int kCombineChunk = 2048;  // partials combine_d1 stages at once
+
 __device__ __forceinline__ bool row_active(const int* block_active, int64_t v,
                                            int row_block) {
   return block_active == nullptr || block_active[v / row_block] != 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// acc + buf[0] + ... + buf[n - 1], added in order by one thread; loads run
+// ahead of the chain of adds.
+__device__ __forceinline__ float serial_sum(const float* buf, int n, float acc) {
+  int i = 0;
+#pragma unroll 2
+  for (; i + 8 <= n; i += 8) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = buf[i + j];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc = add_rn(acc, v[j]);
+  }
+  for (; i < n; ++i) acc = add_rn(acc, buf[i]);
+  return acc;
+}
+
+// Tiles [0, n_partial) leave partial[k]; the others write their rows.
+// At most 32 registers, so that 8 blocks fit an SM.
+__global__ void __launch_bounds__(kThreads, 8)
 segments_d1(const float* __restrict__ feat, const float* __restrict__ w,
             const int* __restrict__ snd, const int* __restrict__ seg_beg,
-            const int* __restrict__ seg_row, const int* __restrict__ block_active,
-            float* __restrict__ partial, int64_t n_seg, int row_block) {
-  const int64_t k = warp_item(n_seg);
-  if (k < 0 || !row_active(block_active, seg_row[k], row_block)) return;
-  const float acc = ordered_range_sum<float>(
-      seg_beg[k], seg_beg[k + 1], [&](int64_t e) {
-        return mul_rn(__ldg(w + e), __ldg(feat + __ldg(snd + e)));
-      });
-  if ((threadIdx.x & 31) == 0) partial[k] = acc;
+            const int* __restrict__ seg_row, const int* __restrict__ tile_beg,
+            const int* __restrict__ tile_end, const int* __restrict__ block_active,
+            float* __restrict__ partial, float* __restrict__ out, int n_partial,
+            int row_block) {
+  extern __shared__ float prod[];
+  const int lo = tile_beg[blockIdx.x], hi = tile_end[blockIdx.x];
+  const int t = threadIdx.x;
+  const int k = lo + t;
+  const int base = seg_beg[lo];
+  const int n = seg_beg[hi] - base;
+  int row = 0, e0 = 0, e1 = 0;
+  bool act = false;
+  if (k < hi) {
+    row = seg_row[k];
+    e0 = seg_beg[k];
+    e1 = seg_beg[k + 1];
+    act = row_active(block_active, row, row_block);
+  }
+  if (!__syncthreads_or(act)) return;
+  for (int i0 = t; i0 < n; i0 += kThreads * kTileBatch) {
+    int s[kTileBatch] = {};
+    float wv[kTileBatch] = {}, f[kTileBatch] = {};
+#pragma unroll
+    for (int j = 0; j < kTileBatch; ++j) {
+      const int i = i0 + j * kThreads;
+      if (i < n) {  // read once: evict first, keep the feature table in L2
+        s[j] = __ldcs(snd + base + i);
+        wv[j] = __ldcs(w + base + i);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kTileBatch; ++j) {
+      if (i0 + j * kThreads < n) f[j] = __ldg(feat + s[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kTileBatch; ++j) {
+      const int i = i0 + j * kThreads;
+      if (i < n) prod[i] = mul_rn(wv[j], f[j]);
+    }
+  }
+  __syncthreads();
+  if (act) {
+    const float acc = serial_sum(prod + (e0 - base), e1 - e0, 0.f);
+    if ((int)blockIdx.x < n_partial) {
+      partial[k] = acc;
+    } else {
+      out[row] = add_rn(0.f, acc);
+    }
+  }
+}
+
+// One block a listed row of two or more segments (rows[j]): its partials,
+// staged a chunk at a time, added in segment order by one thread.
+__global__ void __launch_bounds__(kThreads)
+combine_d1(const float* __restrict__ partial, const int* __restrict__ row_ids,
+           const int* __restrict__ row_seg, const int* __restrict__ rows,
+           const int* __restrict__ block_active, float* __restrict__ out, int row_block) {
+  __shared__ float buf[kCombineChunk];
+  const int i = rows[blockIdx.x];
+  const int v = row_ids[i];
+  if (!row_active(block_active, v, row_block)) return;
+  float acc = 0.f;
+  for (int c = row_seg[i], end = row_seg[i + 1]; c < end; c += kCombineChunk) {
+    const int n = min(kCombineChunk, end - c);
+    for (int j = threadIdx.x; j < n; j += kThreads) buf[j] = partial[c + j];
+    __syncthreads();
+    if (threadIdx.x == 0) acc = serial_sum(buf, n, acc);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[v] = acc;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -74,6 +174,7 @@ segments_cols(const float* __restrict__ feat, const float* __restrict__ w,
   }
 }
 
+// One thread per element of a listed row.
 __global__ void __launch_bounds__(kThreads)
 combine(const float* __restrict__ partial, const int* __restrict__ row_ids,
         const int* __restrict__ row_seg, const int* __restrict__ block_active,
@@ -89,14 +190,23 @@ combine(const float* __restrict__ partial, const int* __restrict__ row_ids,
 
 }  // namespace
 
-// partial: scratch of n_seg * d floats.  block_active may be null (all on).
+// partial: scratch of n_seg * d floats (d == 1: written and read only
+// when n_partial > 0; may be null otherwise).  block_active may be null
+// (all on).  The tile tables (tile_beg, tile_end, multi_rows:
+// kernels/csr.py TileTables) are read when d == 1 and may be null
+// otherwise; tile_cap is the most edges and tile_segs the most segments of any
+// tile (at most kThreads, else cudaErrorInvalidValue).
 extern "C" int gas_gather_combine(const void* feat, const void* w, const void* snd,
                                   const void* row_ids, const void* row_seg,
                                   const void* seg_beg, const void* seg_row,
-                                  const void* block_active, void* partial, void* out,
-                                  int n_rows, int n_listed, int n_seg, int d,
-                                  int row_block, void* stream) {
+                                  const void* block_active, const void* tile_beg,
+                                  const void* tile_end, const void* multi_rows,
+                                  void* partial, void* out, int n_rows, int n_listed,
+                                  int n_seg, int d, int row_block, int n_tiles,
+                                  int n_partial, int n_multi, int tile_cap, int tile_segs,
+                                  void* stream) {
   if (n_rows <= 0 || d <= 0) return 0;
+  if (d == 1 && tile_segs > kThreads) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaMemsetAsync(out, 0, (size_t)n_rows * d * sizeof(float), s);
   const float* f = static_cast<const float*>(feat);
@@ -105,20 +215,29 @@ extern "C" int gas_gather_combine(const void* feat, const void* w, const void* s
   const int* sb = static_cast<const int*>(seg_beg);
   const int* sr = static_cast<const int*>(seg_row);
   const int* ba = static_cast<const int*>(block_active);
+  const int* ri = static_cast<const int*>(row_ids);
+  const int* rs = static_cast<const int*>(row_seg);
   float* p = static_cast<float*>(partial);
-  if (n_seg > 0) {
-    if (d == 1) {
-      segments_d1<<<warp_grid(n_seg), kThreads, 0, s>>>(f, wt, sn, sb, sr, ba, p,
-                                                        n_seg, row_block);
-    } else {
+  float* o = static_cast<float*>(out);
+  if (d == 1) {
+    if (n_tiles > 0) {
+      segments_d1<<<n_tiles, kThreads, (size_t)tile_cap * sizeof(float), s>>>(
+          f, wt, sn, sb, sr, static_cast<const int*>(tile_beg),
+          static_cast<const int*>(tile_end), ba, p, o, n_partial, row_block);
+    }
+    if (n_multi > 0) {
+      combine_d1<<<n_multi, kThreads, 0, s>>>(p, ri, rs, static_cast<const int*>(multi_rows),
+                                              ba, o, row_block);
+    }
+  } else {
+    if (n_seg > 0) {
       segments_cols<<<warp_grid(n_seg), kThreads, 0, s>>>(f, wt, sn, sb, sr, ba, p,
                                                           n_seg, d, row_block);
     }
-  }
-  if (n_listed > 0) {
-    combine<<<thread_grid((int64_t)n_listed * d), kThreads, 0, s>>>(
-        p, static_cast<const int*>(row_ids), static_cast<const int*>(row_seg), ba,
-        static_cast<float*>(out), n_listed, d, row_block);
+    if (n_listed > 0) {
+      combine<<<thread_grid((int64_t)n_listed * d), kThreads, 0, s>>>(p, ri, rs, ba, o,
+                                                                      n_listed, d, row_block);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,13 +3,16 @@
 // The receiver-sorted edges of a row are cut into consecutive segments of
 // at most ROW_SEGMENT edges (src/repro_torch/kernels/csr.py builds the
 // tables).  The tables list only the rows that own an edge (row_ids), so a
-// color's edge subset costs tables of its own size.  Every kernel runs in
-// two passes:
+// color's edge subset costs tables of its own size.  K2, K3 and K1 at
+// D >= 2 run in two passes:
 //   pass 1: one warp per segment k sums its edges in edge order into
 //           partial[k] (a power-law hub spreads over many warps);
 //   pass 2: one thread per element of a listed row adds the row's segment
 //           partials in segment order; rows that own no edge are filled
 //           before (zeros, or K2's kept priority).
+// K1 at D == 1 stages each segment's terms in shared memory, where one
+// thread adds them, and writes one-segment rows in pass 1
+// (gas_gather_combine.cu); the order is the same.
 // Each add is one correctly rounded add and each product one correctly
 // rounded multiply (__fadd_rn / __fmul_rn keep nvcc from contracting them
 // into an FMA).  That is the order and rounding of the plain PyTorch

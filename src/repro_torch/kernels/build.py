@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gas_gather_combine.cu", "gas_scatter_reschedule.cu",
-           "segment_sum_sorted.cu", "embedding_bag.cu", "flash_attention.cu")
+           "segment_sum_sorted.cu", "embedding_bag.cu", "flash_attention.cu",
+           "flash_attention_sm90.cu")
 HEADERS = ("row_reduce.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -34,8 +35,9 @@ _L, _F = ctypes.c_int64, ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p (a 64-bit value).
 SIGNATURES = {
     # feat, w, snd, row_ids, row_seg, seg_beg, seg_row, block_active,
-    # partial, out, n_rows, n_listed, n_seg, d, row_block, stream
-    "gas_gather_combine": (_P,) * 10 + (_I,) * 5 + (_P,),
+    # tile_beg, tile_end, multi_rows, partial, out, n_rows, n_listed, n_seg,
+    # d, row_block, n_tiles, n_partial, n_multi, tile_cap, tile_segs, stream
+    "gas_gather_combine": (_P,) * 13 + (_I,) * 10 + (_P,),
     # contrib, prio, consume, w, snd, row_ids, row_seg, seg_beg, partial,
     # out, n_rows, n_listed, n_seg, stream
     "gas_scatter_reschedule": (_P,) * 10 + (_I,) * 3 + (_P,),
@@ -96,7 +98,7 @@ def build() -> Path:
             raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
         tmp_lib = Path(tmp) / lib_path.name
         link = subprocess.run(
-            [nvcc, "-shared", "-Xcompiler", "-fPIC", *objs, "-o",
+            [nvcc, "-shared", "-Xcompiler", "-fPIC", *objs, "-ldl", "-o",
              str(tmp_lib)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:

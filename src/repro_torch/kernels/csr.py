@@ -4,13 +4,21 @@ the CUDA kernels and their plain versions.
 A row's edges (a run of equal receivers) are cut into consecutive segments
 of at most ``ROW_SEGMENT`` edges.  Every row sum in the port is
 taken in this order: each segment's terms added one by one in edge order,
-then the row's segment sums added in segment order.  The CUDA kernels give
-one warp to one segment, so a power-law hub with millions of in-edges
-spreads over thousands of warps instead of serialising onto one; the plain
+then the row's segment sums added in segment order.  The CUDA kernels sum
+the segments in parallel (K2 and K3 give one warp to one segment), so a
+power-law hub with millions of in-edges spreads over hundreds of segments
+instead of serialising onto one; the plain
 versions add in the same order, so kernel and plain version agree bit for
 bit.  A row with at most ``ROW_SEGMENT`` edges is one segment, and its sum
 is the plain sequential sum (what ``jax.ops.segment_sum`` computes on the
 CPU).
+
+K1 (the gather on the D = 1 path) reads the same segments through
+``TileTables``, built on its first launch: a thread block stages a tile's
+products in shared memory and one thread adds each of its segments.  Runs
+of short segments of one-segment rows share a tile; every other segment
+is a tile of its own.  The tiles change who adds, not the order of the
+adds.
 """
 from __future__ import annotations
 
@@ -22,6 +30,17 @@ import numpy as np
 import torch
 
 ROW_SEGMENT = 2048
+#: K1's tiles: runs of segments of at most ``SHORT_SEGMENT`` edges share a
+#: tile, at most ``TILE_SEGMENTS`` of them (one a thread), all starting
+#: inside one aligned window of ``TILE_WINDOW`` edges, so their edges fit
+#: ``TILE_WINDOW + SHORT_SEGMENT - 1`` floats of shared memory; a longer
+#: segment is a tile of its own (at most ``ROW_SEGMENT`` edges).
+#: ``TILE_SEGMENTS`` is tied to the kernel's block of ``kThreads`` (256)
+#: threads in csrc/row_reduce.cuh: the C entry refuses tiles of more
+#: segments than threads.
+SHORT_SEGMENT = 128
+TILE_SEGMENTS = 256
+TILE_WINDOW = 1024
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -69,6 +88,87 @@ class RowSegments:
         return torch.repeat_interleave(
             torch.arange(self.n_segments, device=self.seg_beg.device),
             (self.seg_beg[1:] - self.seg_beg[:-1]).long())
+
+    @functools.cached_property
+    def tiles(self) -> "TileTables":
+        """K1's tile tables, built on first use (K2 and K3 never ask)."""
+        return TileTables.build(self)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TileTables:
+    """K1's work list over one ``RowSegments``, on its device.
+
+    ``tile_beg``/``tile_end`` [n_tiles] i32: tile j sums segments
+    ``[tile_beg[j], tile_end[j])``, whose edges (one contiguous range)
+    number at most ``tile_cap``.  The first ``n_partial`` tiles are the
+    segments of rows of two or more segments, one a tile, in segment order;
+    they leave partial sums.  Then each segment longer than ``SHORT_SEGMENT`` of a
+    one-segment row, one a tile; then runs of the other segments, packed at
+    most ``TILE_SEGMENTS`` to a tile, all starting inside one aligned window
+    of ``TILE_WINDOW`` edges.  The longest chains of adds come first in the
+    grid.  ``tile_segs`` is the most segments of any tile (at most
+    ``TILE_SEGMENTS``).  ``multi_rows`` [n_multi] i32: the listed indices of
+    the rows of two or more segments, the only rows whose partials the
+    combine pass adds.
+    """
+
+    n_tiles: int
+    n_partial: int
+    n_multi: int
+    tile_cap: int
+    tile_segs: int
+    tile_beg: torch.Tensor
+    tile_end: torch.Tensor
+    multi_rows: torch.Tensor
+
+    @staticmethod
+    def build(seg: RowSegments) -> "TileTables":
+        tile_beg, tile_end, n_partial, cap, multi_rows = tile_tables(
+            seg.row_seg.cpu().numpy(), seg.seg_beg.cpu().numpy())
+        segs = int((tile_end - tile_beg).max()) if tile_beg.size else 0
+        assert segs <= TILE_SEGMENTS, segs
+        dev = seg.seg_beg.device
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+        return TileTables(
+            n_tiles=int(tile_beg.size), n_partial=n_partial,
+            n_multi=int(multi_rows.size), tile_cap=cap, tile_segs=segs,
+            tile_beg=t(tile_beg), tile_end=t(tile_end),
+            multi_rows=t(multi_rows))
+
+
+def tile_tables(row_seg: np.ndarray, seg_beg: np.ndarray):
+    """Host tables ``(tile_beg, tile_end, n_partial, tile_cap, multi_rows)``
+    of ``TileTables`` from the segment tables (``tile_cap``: the most edges
+    of any tile); vectorised, O(segments)."""
+    row_seg = np.asarray(row_seg, np.int64)
+    seg_beg = np.asarray(seg_beg, np.int64)
+    n_seg_row = np.diff(row_seg)
+    single = np.repeat(n_seg_row == 1, n_seg_row)
+    packed = single & (np.diff(seg_beg) <= SHORT_SEGMENT)
+    alone = np.concatenate([np.flatnonzero(~single),
+                            np.flatnonzero(single & ~packed)])
+    k = np.flatnonzero(packed)
+    starts = np.zeros(0, np.int64)
+    if k.size:
+        # a group: consecutive packed segments that start in one window;
+        # a tile: up to TILE_SEGMENTS of a group's segments
+        new_group = np.ones(k.size, bool)
+        new_group[1:] = (np.diff(k) != 1) | (
+            np.diff(seg_beg[k] // TILE_WINDOW) != 0)
+        pos = np.arange(k.size)
+        rank = pos - np.maximum.accumulate(np.where(new_group, pos, 0))
+        starts = np.flatnonzero(rank % TILE_SEGMENTS == 0)
+    tile_beg = np.concatenate([alone, k[starts]])
+    tile_end = np.concatenate([alone + 1, np.append(k[starts[1:] - 1],
+                                                    k[-1:]) + 1])
+    cap = int((seg_beg[tile_end] - seg_beg[tile_beg]).max()) \
+        if tile_beg.size else 0
+    return (tile_beg, tile_end, int((~single).sum()), cap,
+            np.flatnonzero(n_seg_row > 1))
 
 
 def segment_tables(receivers: np.ndarray):

@@ -1,12 +1,17 @@
 """K5, the flash-attention forward kernel: its launch wrapper.
 
-FlashAttention-2 forward with GQA (query head ``h`` reads kv head
+FlashAttention forward with GQA (query head ``h`` reads kv head
 ``h // (H // KV)``), causal and sliding-window masks and zeros on rows that
 see no key; q ``[B, S, H, d]``, k and v ``[B, T, KV, d]``, f32 or bf16 in,
-f32 math, output in q's dtype.  The kernel is CUDA C++ for sm_90a in
-``repro_torch/csrc/flash_attention.cu``; it replaces
-``src/repro/kernels/flash_attention/flash_attention.py:
-flash_attention_pallas``.
+output in q's dtype.  It replaces ``src/repro/kernels/flash_attention/
+flash_attention.py: flash_attention_pallas`` with two CUDA C++ kernels for
+sm_90a behind one entry point:
+
+- bf16 at d 64 and 128: ``repro_torch/csrc/flash_attention_sm90.cu``, on
+  tensor cores (``wgmma``) with TMA loads; scores, softmax and the output
+  sum in f32, P rounded to bf16 for its product with V;
+- f32 at every head dim, and bf16 at d 16 and 32:
+  ``repro_torch/csrc/flash_attention.cu``, f32 FMAs throughout.
 """
 from __future__ import annotations
 

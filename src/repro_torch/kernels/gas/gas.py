@@ -33,7 +33,8 @@ def gas_gather_combine_cuda(
     block_active: Optional[torch.Tensor] = None,  # [n_row_blocks] i32
 ) -> torch.Tensor:
     """Launches K1 → ``[n_rows, D]`` f32.  Rows of inactive row blocks, and
-    rows that own no edge of ``segments``, come back as exact zeros.
+    rows that own no edge of ``segments``, come back as exact zeros.  At
+    D = 1 it reads ``segments.tiles`` (built on the first such launch).
     Counts each launch in ``.launches``."""
     dev = feat.device
     n_rows = segments.n_rows
@@ -50,15 +51,27 @@ def gas_gather_combine_cuda(
     out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
     if n_rows == 0 or d == 0:
         return out
-    partial = torch.empty((segments.n_segments, d), dtype=torch.float32,
-                          device=dev)
+    if d == 1:
+        tiles = segments.tiles              # built on the first D = 1 launch
+        tables = (tiles.tile_beg, tiles.tile_end, tiles.multi_rows)
+        counts = (tiles.n_tiles, tiles.n_partial, tiles.n_multi,
+                  tiles.tile_cap, tiles.tile_segs)
+        n_partial = segments.n_segments if tiles.n_partial else 0
+    else:
+        tables, counts = (None,) * 3, (0,) * 5
+        n_partial = segments.n_segments * d
+    partial = torch.empty((n_partial,), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None or t.numel() == 0 else t.data_ptr()
+
     rc = build.library().gas_gather_combine(
         feat.data_ptr(), weights.data_ptr(), senders.data_ptr(),
         segments.row_ids.data_ptr(), segments.row_seg.data_ptr(),
         segments.seg_beg.data_ptr(), segments.seg_row.data_ptr(),
-        None if block_active is None else block_active.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), n_rows, segments.n_listed,
-        segments.n_segments, d, ROW_BLOCK, build.stream_ptr(dev))
+        ptr(block_active), *map(ptr, tables), ptr(partial), out.data_ptr(),
+        n_rows, segments.n_listed, segments.n_segments, d, ROW_BLOCK, *counts,
+        build.stream_ptr(dev))
     build.check(rc, "gas_gather_combine")
     gas_gather_combine_cuda.launches += 1
     return out

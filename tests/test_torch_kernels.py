@@ -7,6 +7,8 @@ package's own kernel bar (tests/test_gas_kernel.py).  The ``cuda`` tests
 hold the hand-written kernels to their plain versions on the card and skip
 without one.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +18,10 @@ from repro.kernels.gas import ops as jops
 from repro.kernels.segsum import ops as jseg
 from repro.kernels.segsum import segsum as jsegk
 from repro_torch.kernels import build
-from repro_torch.kernels.csr import (ROW_SEGMENT, RowSegments,
-                                     segment_tables, segmented_row_sum)
+from repro_torch.kernels.csr import (ROW_SEGMENT, SHORT_SEGMENT,
+                                     TILE_SEGMENTS, TILE_WINDOW, RowSegments,
+                                     TileTables, segment_tables,
+                                     segmented_row_sum)
 from repro_torch.kernels.gas import ops as tops
 from repro_torch.kernels.gas.gas import EDGE_BLOCK, ROW_BLOCK
 from repro_torch.kernels.segsum import ops as tseg
@@ -110,6 +114,185 @@ class TestRowSegments:
                     part = np.float32(part + x)
                 total = np.float32(total + part)
             assert got[v] == total
+
+
+def _tile_cases():
+    """(name, receivers, n): K1's tile tables' edge cases beside CASES."""
+    rng = np.random.default_rng(5)
+    s = SHORT_SEGMENT
+    # rows of exactly the short/long threshold, one edge either side, and
+    # rows that fill a tile's edge capacity
+    lens = [s - 1, s, s + 1, 1, TILE_WINDOW, s, 2, TILE_WINDOW + s - 1, 3]
+    at = np.repeat(np.arange(len(lens)), lens)
+    # a row split over 3 segments between short rows
+    split = np.repeat([0, 1, 2], [5, 2 * ROW_SEGMENT + 7, 4])
+    pareto = np.sort(np.minimum((rng.pareto(1.2, 40000) * 3).astype(
+        np.int64), 2999))
+    return [(name, recv.astype(np.int32), n) for name, recv, n in (
+        ("threshold", at, len(lens)),
+        ("split-3", split, 3),
+        ("one-edge-rows", np.arange(5000), 5000),
+        ("pareto", pareto, 3000))]
+
+
+TILE_CASES = [(c[0], c[2], c[3]) for c in CASES] + _tile_cases()
+
+
+def _tile_walk(terms, seg, tiles, n_rows, active=None):
+    """K1's D = 1 sums in the kernel's order, in float32 on the host: each
+    tile stages its products, then each of its segments is summed from 0 in
+    edge order, kept as a partial by the first ``n_partial`` tiles and
+    written as 0 + sum by the others; rows of several segments add their
+    partials in order.  ``active`` [n_rows] bool: rows to write (a tile
+    with no active row is skipped)."""
+    sb, sr = seg.seg_beg.numpy(), seg.seg_row.numpy()
+    rs, ri = seg.row_seg.numpy(), seg.row_ids.numpy()
+    act = np.ones(n_rows, bool) if active is None else active
+    out = np.zeros(n_rows, np.float32)
+    partial = np.full(seg.n_segments, np.nan, np.float32)
+
+    def ordered(xs):
+        acc = np.float32(0)
+        for x in xs:
+            acc = np.float32(acc + x)
+        return acc
+
+    for j, (lo, hi) in enumerate(zip(tiles.tile_beg.numpy(),
+                                     tiles.tile_end.numpy())):
+        if not act[sr[lo:hi]].any():
+            continue
+        base = sb[lo]
+        staged = terms[base:sb[hi]].copy()
+        for k in range(lo, hi):
+            if act[sr[k]]:
+                acc = ordered(staged[sb[k] - base:sb[k + 1] - base])
+                if j < tiles.n_partial:
+                    partial[k] = acc
+                else:
+                    out[sr[k]] = np.float32(0) + acc
+    for i in tiles.multi_rows.numpy():
+        if act[ri[i]]:
+            out[ri[i]] = ordered(partial[rs[i]:rs[i + 1]])
+    return out
+
+
+class TestTileTables:
+    """K1's tiles (``csr.TileTables``): which segments a block sums, and
+    that summing them so gives the plain version's bits."""
+
+    @pytest.mark.parametrize("case", TILE_CASES, ids=[c[0] for c in
+                                                      TILE_CASES])
+    def test_every_segment_once_in_order(self, case):
+        _, recv, n = case
+        seg = RowSegments.build(recv, n, "cpu")
+        t = TileTables.build(seg)
+        sb = seg.seg_beg.numpy().astype(np.int64)
+        n_seg_row = np.diff(seg.row_seg.numpy())
+        single = np.repeat(n_seg_row == 1, n_seg_row)
+        length = np.diff(sb)
+        beg, end = t.tile_beg.numpy(), t.tile_end.numpy()
+        p = t.n_partial
+        members = [np.arange(a, b) for a, b in zip(beg, end)]
+        # each segment in exactly one tile, every tile a run of segments
+        np.testing.assert_array_equal(
+            np.sort(np.concatenate(members + [np.zeros(0, np.int64)])),
+            np.arange(seg.n_segments))
+        assert (end > beg).all() and ((end - beg) <= TILE_SEGMENTS).all()
+        assert t.tile_segs == ((end - beg).max() if beg.size else 0)
+        edges = sb[end] - sb[beg]
+        assert (edges <= t.tile_cap).all()
+        assert t.tile_cap <= max(TILE_WINDOW + SHORT_SEGMENT - 1,
+                                 ROW_SEGMENT)
+        if beg.size:
+            assert t.tile_cap == edges.max()
+        # first the segments of rows of 2+ segments, one a tile, in order
+        np.testing.assert_array_equal(beg[:p], np.flatnonzero(~single))
+        assert (end[:p] == beg[:p] + 1).all()
+        # then longer segments of one-segment rows, one a tile, in order;
+        # then runs of short segments of one-segment rows, in order
+        alone = (end[p:] - beg[p:] == 1) & (
+            length[beg[p:]] > SHORT_SEGMENT)
+        n_long = int(alone.sum())
+        assert alone[:n_long].all() and not alone[n_long:].any()
+        np.testing.assert_array_equal(
+            beg[p:p + n_long],
+            np.flatnonzero(single & (length > SHORT_SEGMENT)))
+        packed = np.concatenate(members[p + n_long:]
+                                + [np.zeros(0, np.int64)])
+        assert (np.diff(packed) > 0).all()
+        assert single[packed].all()
+        assert (length[packed] <= SHORT_SEGMENT).all()
+        np.testing.assert_array_equal(t.multi_rows.numpy(),
+                                      np.flatnonzero(n_seg_row > 1))
+        assert (t.n_tiles, t.n_multi) == (beg.size, t.multi_rows.numel())
+
+    def test_edge_cases(self):
+        def tables(recv, n):
+            return TileTables.build(RowSegments.build(
+                np.asarray(recv, np.int32), n, "cpu"))
+
+        empty = tables([], 5)
+        assert (empty.n_tiles, empty.n_partial, empty.n_multi,
+                empty.tile_cap, empty.tile_segs) == (0, 0, 0, 0, 0)
+        loop = tables([0], 1)
+        assert (loop.n_tiles, loop.n_partial, loop.tile_cap,
+                loop.tile_segs) == (1, 0, 1, 1)
+        hub = tables([3] * (2 * ROW_SEGMENT + 5), 4)
+        assert (hub.n_tiles, hub.n_partial, hub.tile_cap) == (3, 3,
+                                                              ROW_SEGMENT)
+        np.testing.assert_array_equal(hub.multi_rows.numpy(), [0])
+        ones = tables(np.arange(1000), 1000)
+        np.testing.assert_array_equal(
+            ones.tile_end.numpy() - ones.tile_beg.numpy(),
+            [TILE_SEGMENTS] * 3 + [1000 - 3 * TILE_SEGMENTS])
+        assert ones.n_partial == 0 and ones.tile_cap == TILE_SEGMENTS
+        assert ones.tile_segs == TILE_SEGMENTS
+
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("case", ["pareto", "hub", "threshold",
+                                      "split-3"])
+    def test_walk_in_tile_order_equals_plain(self, case, masked):
+        """The kernel's order over the tiles gives ``segmented_row_sum``'s
+        bits, with rows whose products are -0.0 or sum to -0.0 (written
+        as +0.0 by both)."""
+        _, recv, n = next(c for c in TILE_CASES if c[0] == case)
+        rng = np.random.default_rng(7)
+        seg = RowSegments.build(recv, n, "cpu")
+        feat = rng.normal(size=n).astype(np.float32)
+        w = rng.normal(size=recv.size).astype(np.float32)
+        snd = rng.integers(0, n, recv.size)
+        ptr = np.searchsorted(recv, np.arange(n + 1))
+        # rows of one product of -0.0, and of two (-0.0 + -0.0)
+        zero = np.concatenate([ptr[np.flatnonzero(np.diff(ptr) == 1)[:3]],
+                               ptr[np.flatnonzero(np.diff(ptr) == 2)[:3]]])
+        zero = np.concatenate([zero, zero + 1])
+        zero = zero[zero < recv.size]
+        w[zero] = np.copysign(np.float32(0), -feat[snd[zero]])
+        terms = (torch.from_numpy(w) * torch.from_numpy(feat)[snd]).numpy()
+        assert np.signbit(terms[zero]).all() and (terms[zero] == 0).all()
+        active = rng.random(n) < 0.5 if masked else None
+        want = segmented_row_sum(torch.from_numpy(terms),
+                                 torch.from_numpy(recv), n, seg).numpy()
+        if masked:
+            want = np.where(active, want, np.float32(0))
+        got = _tile_walk(terms, seg, seg.tiles, n, active)
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+        assert not np.signbit(want[want == 0]).any()
+
+    def test_tile_segments_fit_a_block(self):
+        """Thread t of K1's block sums its tile's segment t, so a tile holds
+        at most as many segments as the block has threads (``kThreads`` in
+        csrc/row_reduce.cuh)."""
+        src = (build.CSRC / "row_reduce.cuh").read_text()
+        warps = int(re.search(r"kWarpsPerBlock = (\d+);", src).group(1))
+        assert TILE_SEGMENTS <= 32 * warps
+
+    def test_built_lazily_once(self):
+        _, snd, recv, n = CASES[1]
+        seg = RowSegments.build(recv, n, "cpu")
+        assert "tiles" not in seg.__dict__
+        assert seg.tiles is seg.tiles
 
 
 class TestEdgeSet:

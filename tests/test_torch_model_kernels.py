@@ -132,7 +132,68 @@ ATTN_CASES = [
     (2, 96, 96, 2, 2, 64, True, None, "bf16"),
     (1, 140, 140, 2, 12, 128, True, 33, "bf16"),
     (1, 64, 64, 4, 1, 128, False, None, "bf16"),
+    (1, 200, 200, 1, 2, 64, True, 100, "bf16"),
+    (1, 130, 300, 2, 2, 128, False, None, "bf16"),
 ]
+#: bf16 cases for the tensor-core kernel's 128 × 128 tiles (on the card
+#: only): windows at 4096 and one either side where they bind, S and T not
+#: multiples of 128, G = 12 at d 128, T > S without the causal mask
+ATTN_TILE_CASES = [
+    (1, 4500, 4500, 1, 2, 128, True, 4095),
+    (1, 4500, 4500, 1, 2, 128, True, 4096),
+    (1, 4500, 4500, 1, 2, 128, True, 4097),
+    (1, 1000, 1000, 2, 2, 64, True, 100),
+    (1, 333, 333, 2, 12, 128, True, None),
+    (2, 200, 700, 2, 2, 128, False, None),
+    (1, 300, 1100, 1, 4, 64, False, 256),
+]
+
+
+#: mask probes (S, d, W), small shapes and the card's tile shapes: each is
+#: run causal under windows W - 1, W and W + 1, and causal and not without
+#: a window
+PROBE_CASES = [(300, 64, 128), (400, 128, 200), (300, 64, 8)]
+PROBE_TILE_CASES = [(4500, 128, 4096), (1000, 64, 100), (333, 128, 128)]
+PROBE_RUNS = [("W-1", True), ("W", True), ("W+1", True), (None, True),
+              (None, False)]
+
+
+def _mask_probe(s, d, window, group=2):
+    """q [1, S, group, d], k and v [1, S, 1, d] (f32 numpy) that make a
+    mask's edge show in every row: query i scores its target key 12 logits
+    above the keys one either side (more further off); the target is
+    i - window (just outside the window) where the window binds, else i + 1
+    (just past the diagonal).  v is one-hot by key position (mod d), so a
+    row is the one-hot of its top admitted key."""
+    f = d // 2
+    theta = 0.5 * (1.0 / (4 * s)) ** (np.arange(f) / (f - 1))
+    amp = np.sqrt(12.0 * np.sqrt(d) / np.sum(1 - np.cos(theta)))
+
+    def phi(x):
+        a = np.asarray(x, np.float64)[:, None] * theta
+        return amp * np.concatenate([np.cos(a), np.sin(a)], 1)
+
+    i = np.arange(s)
+    target = np.where(i >= window, i - window, i + 1)
+    q = np.broadcast_to(phi(target)[None, :, None], (1, s, group, d))
+    k = phi(i)[None, :, None]
+    v = np.zeros((1, s, 1, d))
+    v[0, i, 0, i % d] = 1.0
+    return [np.ascontiguousarray(x, np.float32) for x in (q, k, v)]
+
+
+def _probe_window(w, name):
+    return None if name is None else w + {"W-1": -1, "W": 0, "W+1": 1}[name]
+
+
+def _row_rel(got, want):
+    """Max over rows (one query and head) of a row's max abs error over
+    that row's max |plain|; a row the plain version leaves zero must be
+    zero."""
+    err = (got - want).abs().flatten(0, -2).amax(-1)
+    scale = want.abs().flatten(0, -2).amax(-1)
+    assert (err[scale == 0] == 0).all()
+    return float((err / scale.clamp_min(1e-30))[scale > 0].max())
 
 
 def _qkv(rng, b, s, t, kv, group, d, jdt):
@@ -188,6 +249,42 @@ class TestFlashAttention:
         assert_close(got, flash_attention_pallas(
             q, k, v, causal=causal, sliding_window=2, interpret=True), 2e-5)
 
+    @pytest.mark.parametrize("run", PROBE_RUNS, ids=str)
+    @pytest.mark.parametrize("case", PROBE_CASES, ids=str)
+    def test_mask_probe_matches_jax(self, case, run):
+        """On the mask probe every row is one key's one-hot, so a mask one
+        key off at its edge moves the row by about 1, far outside 2e-5."""
+        s, d, w = case
+        window, causal = _probe_window(w, run[0]), run[1]
+        q, k, v = _mask_probe(s, d, w)
+        got = tfa.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                  causal=causal, sliding_window=window)
+        jq, jk, jv = map(jnp.asarray, (q, k, v))
+        assert_close(got, attention_ref(jq, jk, jv, causal, window), 2e-5)
+        assert_close(got, flash_attention_pallas(
+            jq, jk, jv, causal=causal, sliding_window=window,
+            interpret=True), 2e-5)
+
+    @pytest.mark.parametrize("case", PROBE_CASES + PROBE_TILE_CASES,
+                             ids=str)
+    def test_mask_probe_bites(self, case):
+        """Windows W - 1, W and W + 1 differ by about 1 on every row where
+        they bind, and causal and not on every row that probes the
+        diagonal: the probe tells them apart."""
+        s, d, w = case
+        q, k, v = map(torch.from_numpy, _mask_probe(s, d, w))
+        out = {run: tfa_ref(q, k, v, run[1], _probe_window(w, run[0]),
+                            q_chunk=512) for run in PROBE_RUNS}
+
+        def moved(a, b, rows):
+            return float((out[a][:, rows] - out[b][:, rows]).abs()
+                         .amax(-1).min())
+
+        runs = PROBE_RUNS[:3]
+        for a, b in zip(runs, runs[1:] + runs[:1]):
+            assert moved(a, b, slice(w + 1, None)) > 0.99
+        assert moved(PROBE_RUNS[3], PROBE_RUNS[4], slice(0, w)) > 0.99
+
     def test_query_chunks_equal_whole(self):
         rng = np.random.default_rng(4)
         q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
@@ -206,8 +303,8 @@ class TestFlashAttention:
 class TestOnCard:
     """K4 and K5 against their plain versions on the card.  K4 adds in the
     plain version's order: equal in f32.  K5 sums in its own order: 2e-5
-    relative in f32; in bf16 one bf16 ulp (2^-7 relative) at the largest
-    output, since both compute in f32 and round once."""
+    relative in f32; in bf16 one bf16 ulp (2^-7 relative) of a row's
+    largest output, since both compute in f32 and round once."""
 
     @pytest.fixture(autouse=True)
     def _card(self):
@@ -247,6 +344,41 @@ class TestOnCard:
         n0 = flash_attention_cuda.launches
         got = tfa.flash_attention(q, k, v, causal, window).float()
         assert flash_attention_cuda.launches == n0 + 1
-        scale = float(want.abs().max())
         rel = 2e-5 if tdt == torch.float32 else 2.0 ** -7
-        assert float((got - want).abs().max()) <= rel * scale
+        assert _row_rel(got, want) <= rel
+
+    @pytest.mark.parametrize("case", ATTN_TILE_CASES, ids=str)
+    def test_flash_attention_tiles_close_to_plain(self, case):
+        from repro_torch.kernels.flash_attention.flash_attention import \
+            flash_attention_cuda
+        b, s, t, kv, group, d, causal, window = case
+        rng = np.random.default_rng(t)
+        q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+                   .to(torch.bfloat16).cuda()
+                   for sh in ((b, s, kv * group, d), (b, t, kv, d),
+                              (b, t, kv, d)))
+        want = tfa_ref(q, k, v, causal, window).float()
+        n0 = flash_attention_cuda.launches
+        got = tfa.flash_attention(q, k, v, causal, window).float()
+        assert flash_attention_cuda.launches == n0 + 1
+        assert _row_rel(got, want) <= 2.0 ** -7
+
+    @pytest.mark.parametrize("dt", sorted(DTYPES))
+    @pytest.mark.parametrize("case", PROBE_TILE_CASES, ids=str)
+    def test_flash_attention_mask_probe(self, case, dt):
+        """The mask probe at the tensor-core kernel's tile shapes: a mask
+        one key off at its edge would move a row by about 1."""
+        from repro_torch.kernels.flash_attention.flash_attention import \
+            flash_attention_cuda
+        s, d, w = case
+        tdt = DTYPES[dt][1]
+        q, k, v = (torch.from_numpy(x).to(tdt).cuda()
+                   for x in _mask_probe(s, d, w))
+        rel = 2e-5 if tdt == torch.float32 else 2.0 ** -7
+        for name, causal in PROBE_RUNS:
+            window = _probe_window(w, name)
+            want = tfa_ref(q, k, v, causal, window, q_chunk=512).float()
+            n0 = flash_attention_cuda.launches
+            got = tfa.flash_attention(q, k, v, causal, window).float()
+            assert flash_attention_cuda.launches == n0 + 1
+            assert _row_rel(got, want) <= rel, (name, causal)
