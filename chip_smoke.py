@@ -11,17 +11,23 @@ line:
    scatter/reschedule, K3 sorted segment sum, K4 embedding bag, K5 flash
    attention: its tensor-core kernel in bf16 at d 64 and 128, its SIMT
    kernel otherwise) is held against its plain PyTorch version on the
-   card, on edge cases and at the shapes its path gives it (K1 equal to
-   the bit, since it adds in the plain version's order; the others within
-   a max relative error of 2e-5 in float32, and in bfloat16 one bfloat16
-   ulp of the largest output, 2^-7 relative), and timed beside its plain
-   version, one PyTorch library call for the same function, and its
-   bound.  K4 and K5 are timed at their paths' shapes inside phases 4 and
-   5, where the model's tensors live.
+   card, on edge cases and at the shapes its path gives it (K1-K3 equal
+   to the bit to the plain version run on the host, since they add in its
+   order; K4 and K5 within a max relative error of 2e-5 in float32, and in
+   bfloat16 one bfloat16 ulp of the largest output, 2^-7 relative), and
+   timed beside its plain version, one PyTorch library call for the same
+   function, and its bound.  K2 at the full edge set and at the largest
+   sender-color subset of phase 2 (also equal to the bit to the full
+   set's output); K3 at D 1-64 in f32 and f64 beside the LBP shape.  K4
+   and K5 are timed at their paths' shapes inside phases 4 and 5, where
+   the model's tensors live.
 2. The main path: PageRank on ChromaticEngine (fused) over a synthetic
    power-law graph at the scale of SNAP soc-LiveJournal1 (4.85 M vertices),
    run to convergence and checked against a float64 power iteration on the
-   card (L1 ≤ 1e-3).  K1 and K2 must have launched on it.
+   card (L1 ≤ 1e-3).  K1 and K2 must have launched on it; K2 reads each
+   edge once a sweep (the sender-color subsets).  Then the same run with
+   every phase scattering over the full edge set must take the same
+   schedule and give the same ranks and priorities to the bit.
 3. LBP and engine parity.  LBP under Chromatic (the dense path; K3 must
    have launched on it) in float32 at smoothing 0.6 on the card, its
    residual's course logged; then PageRank under BSP, Chromatic and
@@ -46,6 +52,7 @@ numbers, and as its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import multiprocessing
 import re
@@ -147,12 +154,23 @@ def sync_time(fn):
     return out, time.perf_counter() - t0
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after a warm-up."""
+#: cycles of the sleep kernel that ``cuda_ms(queued=True)`` puts before the
+#: timed calls (~10 ms at 1980 MHz)
+QUEUE_SLEEP_CYCLES = 20_000_000
+
+
+def cuda_ms(fn, reps: int = 10, queued: bool = False) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, after a warm-up.
+    ``queued``: the calls are enqueued behind a sleep kernel, so the host's
+    launch overhead leaves no gaps between them and a kernel's time is its
+    device time (a call that syncs with the host waits for the sleep, and
+    is timed as before)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -199,17 +217,21 @@ class KernelRecord:
         self.max_abs = 0.0
         self.max_rel = 0.0
         self.times = {}
+        self.other = []          # timings at further shapes (K2, K3)
         self.launches = 0
 
     def compare(self, what, k, p, bitwise=False):
         """``bitwise``: the kernel adds in the plain version's order, so the
-        two must be equal to the bit (K1)."""
+        two must be equal to the bit (K1, K2, K3, against the plain version
+        run on the host: on the card ``index_add_`` adds with atomics, in
+        no fixed order)."""
         a, r = (row_rel_err if self.row_scale else rel_err)(k, p)
         self.max_abs = max(self.max_abs, a)
         self.max_rel = max(self.max_rel, r)
         if bitwise:
-            same = k.shape == p.shape and torch.equal(
-                k.view(torch.int32), p.view(torch.int32))
+            bits = torch.int64 if p.dtype == torch.float64 else torch.int32
+            same = k.shape == p.shape and k.dtype == p.dtype and \
+                torch.equal(k.view(bits), p.view(bits))
             expect(same, f"{self.name} {what}: equal to the bit (max abs "
                    f"diff {a:.3g})")
             return
@@ -222,19 +244,27 @@ class KernelRecord:
         log(f"info {self.name}: rel err vs library {rel_err(k, lib)[1]:.3g}")
 
     def time(self, run_k, run_p, run_l, n_bytes, n_flops, shape,
-             flops_per_s=F32_FLOPS_PER_S, plain_reps=3):
+             flops_per_s=F32_FLOPS_PER_S, plain_reps=3, main=True):
         """``flops_per_s``: the card's peak for the unit and dtype the
         work could use (f32 CUDA cores for sums; bf16 tensor cores for
-        bf16 products)."""
+        bf16 products).  ``main``: the shape the kernel's path gives it
+        (the record's own numbers), else one more shape (``other``)."""
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_flops / flops_per_s * 1e3
-        self.times = {
-            "ms": cuda_ms(run_k), "plain_ms": cuda_ms(run_p, plain_reps),
-            "library_ms": cuda_ms(run_l), "bound_ms": max(t_bytes, t_ops),
+        times = {
+            "ms": cuda_ms(run_k, queued=True),
+            "plain_ms": cuda_ms(run_p, plain_reps, queued=True),
+            "library_ms": cuda_ms(run_l, queued=True),
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "shape": shape}
+        times["bound_share"] = times["bound_ms"] / times["ms"]
+        if main:
+            self.times = times
+        else:
+            self.other.append(times)
         log(f"time {self.name} [{shape}]: " + ", ".join(
-            f"{k}={v:.4g}" for k, v in self.times.items()
+            f"{k}={v:.4g}" for k, v in times.items()
             if isinstance(v, float)))
 
     def json(self):
@@ -246,6 +276,7 @@ class KernelRecord:
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"],
+            "other_shapes": self.other,
         }
 
 
@@ -303,7 +334,7 @@ def edge_cases(rng):
     for name, recv, n in tile_receivers():
         cases.append((name, rng.integers(0, n, recv.size).astype(np.int32),
                       recv, n, 1))
-    for d in (1, 5, 16, 128):
+    for d in (1, 5, 16, 128, 300):
         cases.append((f"pareto D={d}", *skewed(3000, 40000), 3000, d))
     return cases
 
@@ -345,15 +376,17 @@ def kernel_parity_cases(recs, rng):
             for wname, wt in (("ones", None), ("w", w)):
                 k = scatter_reschedule(contrib, prio, cons_t, es, wt)
                 wp = torch.ones_like(w_pad) if wt is None else w_pad
-                p = scatter_reschedule_ref(contrib, prio, cons_t, wp,
-                                           es.senders, es.receivers, n)
-                k2.compare(f"{name} consume={cname} w={wname}", k, p)
+                p = scatter_reschedule_ref(
+                    contrib.cpu(), prio.cpu(), cons_t.cpu(), wp.cpu(),
+                    es.senders.cpu(), es.receivers.cpu(), n)
+                k2.compare(f"{name} consume={cname} w={wname}", k.cpu(), p,
+                           bitwise=True)
         recv_t = torch.from_numpy(recv).cuda()
         for dt in (np.float32, np.float64):
             msgs = torch.from_numpy(rng.normal(size=(e, d)).astype(dt)).cuda()
             k = segment_sum_sorted(msgs, recv_t, n, segments=es.segments)
-            p = segment_sum_sorted_ref(msgs, recv_t, n)
-            k3.compare(f"{name} {dt.__name__}", k, p)
+            p = segment_sum_sorted_ref(msgs.cpu(), recv_t.cpu(), n)
+            k3.compare(f"{name} {dt.__name__}", k.cpu(), p, bitwise=True)
 
 
 def k1_plain_on_cpu(feat, w_pad, es, blk):
@@ -363,6 +396,15 @@ def k1_plain_on_cpu(feat, w_pad, es, blk):
     from repro_torch.kernels.gas.ref import gather_combine_ref
     return gather_combine_ref(feat.cpu(), w_pad.cpu(), es.senders.cpu(),
                               es.receivers.cpu(), es.n_vertices, blk.cpu())
+
+
+def on_host(seg):
+    """A copy of the segment tables ``seg`` on the host: the plain version
+    adds in the order of the tables it is given (a subset's are cut at the
+    full set's segments, not every ROW_SEGMENT edges)."""
+    return dataclasses.replace(seg, **{
+        f: getattr(seg, f).cpu()
+        for f in ("row_ids", "row_seg", "seg_beg", "seg_row")})
 
 
 def csr_matrix(es, values):
@@ -402,51 +444,99 @@ def time_k1(rec, es, w, rng):
                    lambda: [run_k() for _ in range(10)], "k1_profile.txt")
 
 
-def time_k2(rec, es, rng):
-    """K2 at the main path's shape: the full edge set, unit weights."""
+def time_k2(rec, full, sub, color, colors, rng):
+    """K2 at the main path's two shapes, unit weights: the full edge set
+    (BSP and Dynamic scatter over it) with contributions anywhere, and the
+    largest sender-color subset (a chromatic phase scatters over its
+    color's) with contributions +0 off that color, the record's own shape.
+    Each equal to the bit to its plain version on the host; the subset's
+    output also to the full set's kernel output on the same inputs."""
     from repro_torch.kernels.gas.scatter import gas_scatter_reschedule_cuda
     from repro_torch.kernels.gas.ref import scatter_reschedule_ref
-    n, e = es.n_vertices, es.n_edges
-    contrib = torch.from_numpy(np.where(rng.random(n) < 0.2,
-                                        rng.random(n) * 1e-7, 0)
-                               .astype(np.float32)).cuda()
+    n = full.n_vertices
     prio = torch.from_numpy((rng.random(n) * 1e-6).astype(np.float32)).cuda()
-    cons = contrib > 0
-    ones = torch.ones(es.senders.shape[0], dtype=torch.float32, device="cuda")
-    run_k = lambda: gas_scatter_reschedule_cuda(contrib, prio, cons,
-                                                es.senders, es.segments)
-    run_p = lambda: scatter_reschedule_ref(contrib, prio, cons, ones,
-                                           es.senders, es.receivers, n,
-                                           segments=es.segments)
-    rec.compare("main shape", run_k(), run_p())
-    a = csr_matrix(es, ones[:e])
-    keep = torch.where(cons, torch.zeros_like(prio), prio)[:, None]
-    run_l = lambda: torch.addmm(keep, a, contrib[:, None])
-    rec.against_library(run_k(), run_l()[:, 0])
-    rec.time(run_k, run_p, run_l, 4 * e + 13 * n + row_ptr_bytes(n),
-             e, f"N={n} E={e} segments={es.segments.n_segments} "
-             f"(full edge set)")
+    live = rng.random(n) < 0.2
+    for es, senders_on in ((full, live), (sub, live & (colors == color))):
+        contrib = torch.from_numpy(np.where(
+            senders_on, rng.random(n) * 1e-7, 0).astype(np.float32)).cuda()
+        cons = contrib > 0
+        ones = torch.ones(es.senders.shape[0], dtype=torch.float32,
+                          device="cuda")
+        run_k = lambda: gas_scatter_reschedule_cuda(contrib, prio, cons,
+                                                    es.senders, es.segments)
+        run_p = lambda: scatter_reschedule_ref(contrib, prio, cons, ones,
+                                               es.senders, es.receivers, n,
+                                               segments=es.segments)
+        host = scatter_reschedule_ref(
+            contrib.cpu(), prio.cpu(), cons.cpu(), ones.cpu(),
+            es.senders.cpu(), es.receivers.cpu(), n,
+            segments=on_host(es.segments))
+        what = "full edge set" if es is full else \
+            f"largest sender-color subset (color {color})"
+        rec.compare(what, run_k().cpu(), host, bitwise=True)
+        if es is sub:
+            rec.compare(f"{what} vs the full set's kernel call", run_k(),
+                        gas_scatter_reschedule_cuda(contrib, prio, cons,
+                                                    full.senders,
+                                                    full.segments),
+                        bitwise=True)
+        a = csr_matrix(es, ones[:es.n_edges])
+        keep = torch.where(cons, torch.zeros_like(prio), prio)[:, None]
+        run_l = lambda: torch.addmm(keep, a, contrib[:, None])
+        rec.against_library(run_k(), run_l()[:, 0])
+        n_snd = int(torch.unique(es.senders[:es.n_edges]).numel())
+        tiles = es.segments.tiles
+        # senders, the contributions of the distinct senders, prio,
+        # consume, the row offsets, the output
+        if es is sub:
+            profile_window(f"K2 {what} (20 calls)",
+                           lambda: [run_k() for _ in range(20)],
+                           "k2_profile.txt")
+        rec.time(run_k, run_p, run_l,
+                 4 * es.n_edges + 4 * n_snd + 9 * n + row_ptr_bytes(n),
+                 es.n_edges, f"N={n} E={es.n_edges} senders={n_snd} "
+                 f"segments={es.segments.n_segments} tiles={tiles.n_tiles}"
+                 f" (partial {tiles.n_partial}) ({what})", main=es is sub)
 
 
-def time_k3(rec, structure, k, dtype):
-    """K3 at the LBP path's shape: [E, K] messages on the 3-D grid."""
-    from repro_torch.kernels.segsum.segsum import segment_sum_sorted_cuda
+#: K3's widths held and timed on the LBP grid beside its path's shape
+K3_WIDTHS = (1, 2, 5, 8, 16, 64)
+
+
+def time_k3(rec, structure, k, dtype, main=True):
+    """K3 on [E, k] messages on the 3-D grid (the LBP path's shape at k =
+    LBP_STATES in f32), equal to the bit to its plain version on the
+    host."""
+    from repro_torch.kernels.segsum.segsum import (segment_sum_sorted_cuda,
+                                                   tile_shape)
     from repro_torch.kernels.segsum.ref import segment_sum_sorted_ref
     n, e = structure.n_vertices, structure.n_edges
     seg = structure.row_segments()
     recv = structure.device_arrays()["receivers"]
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(k)
     msgs = torch.randn((e, k), generator=gen, device="cuda", dtype=dtype)
     run_k = lambda: segment_sum_sorted_cuda(msgs, seg)
     run_p = lambda: segment_sum_sorted_ref(msgs, recv, n, seg)
     run_l = lambda: torch.zeros((n, k), device="cuda",
                                 dtype=dtype).index_add_(0, recv, msgs)
-    rec.compare("main shape", run_k(), run_p())
+    shape = f"N={n} D={k} E={e} {str(dtype)[6:]} (LBP grid)"
+    rec.compare(shape, run_k().cpu(),
+                segment_sum_sorted_ref(msgs.cpu(), recv.cpu(), n),
+                bitwise=True)
     rec.against_library(run_k(), run_l())
     size = msgs.element_size()
+    tiles = seg.tiles_for(tile_shape(k, size)[0])
     rec.time(run_k, run_p, run_l, size * (e + n) * k + row_ptr_bytes(n),
-             e * k,
-             f"N={n} D={k} E={e} {str(dtype)[6:]} (LBP grid)")
+             e * k, f"{shape} tiles={tiles.n_tiles}", main=main)
+
+
+def k3_widths(rec, structure):
+    """K3 at every width of K3_WIDTHS in f32 and f64 on the LBP grid."""
+    for dtype in (torch.float32, torch.float64):
+        for k in K3_WIDTHS:
+            if (k, dtype) != (LBP_STATES, LBP_F32[0]):
+                time_k3(rec, structure, k, dtype, main=False)
+                torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +581,7 @@ def profile_window(label, fn, out_name):
     log(f"{label}: profiled: wall {wall:.1f} ms (with profiler), device "
         f"busy {busy:.1f} ms in {launches} kernels, idle share {idle:.3f}")
     expect(launches > 0, f"{label}: the profiler saw the device's kernels")
-    for ev in sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:6]:
+    for ev in sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:8]:
         log(f"{label}:   {ev.key[:60]:60s} "
             f"{ev.self_device_time_total / 1e3:9.2f} ms  x{ev.count}")
     return {"wall_ms": wall, "busy_ms": busy, "kernels": launches,
@@ -540,26 +630,57 @@ def main_path(recs, rng):
         f"colors={int(colors.max()) + 1}")
     tol = 1e-4 / n
     prog = PageRankProgram(alpha=ALPHA, n_vertices=n)
+
+    class SetupTimed(ChromaticEngine):
+        """ChromaticEngine that logs the seconds and device memory of each
+        list of per-color subsets it builds (set-up)."""
+
+        def _subsets(self, edge_color, cuts=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._subsets(edge_color, cuts)
+            torch.cuda.synchronize()
+            kind = "gather (receiver" if cuts is None else "scatter (sender"
+            log(f"main: {kind}-color) subsets {time.perf_counter() - t0:.1f}"
+                f" s, {edgeset_bytes(out) / 2**30:.3f} GiB on the card")
+            return out
+
     t0 = time.perf_counter()
-    eng = ChromaticEngine(prog, graph, colors=colors, tolerance=tol,
-                          device="cuda")
-    full = eng._full_edges  # built at first use; counted as set-up here
+    eng = SetupTimed(prog, graph, colors=colors, tolerance=tol,
+                     device="cuda")
     torch.cuda.synchronize()
-    log(f"main: per-color EdgeSets {time.perf_counter() - t0:.1f} s  "
+    log(f"main: engine set-up {time.perf_counter() - t0:.1f} s (both kinds "
+        f"of subsets, the scatter subsets' cuts, the coloring check)  "
         f"fused={eng.use_fused}")
     expect(eng.use_fused, "main: PageRank takes the fused path")
-
-    # K1's tile tables, built on its first launch, built here (set-up)
     t0 = time.perf_counter()
-    n_tiles = sum(es.segments.tiles.n_tiles for es in eng._color_edges)
-    log(f"main: K1 tile tables {time.perf_counter() - t0:.2f} s  "
-        f"tiles={n_tiles}")
+    full = eng._full_edges   # for K2's timing and the full-set comparison
+    torch.cuda.synchronize()
+    log(f"main: full EdgeSet {time.perf_counter() - t0:.1f} s")
+
+    # K1's and K2's tile tables, built on their first launch, built here
+    # (set-up)
+    for name, sets in (("K1", eng._color_edges), ("K2", eng._scatter_edges)):
+        t0 = time.perf_counter()
+        n_tiles = sum(es.segments.tiles.n_tiles for es in sets)
+        torch.cuda.synchronize()
+        log(f"main: {name} tile tables {time.perf_counter() - t0:.2f} s  "
+            f"tiles={n_tiles}; the subsets with them "
+            f"{edgeset_bytes(sets) / 2**30:.3f} GiB on the card")
+    per_sweep = sum(es.n_edges for es in eng._scatter_edges)
+    log(f"main: K2 reads {per_sweep} edges a sweep over {eng.num_colors} "
+        f"color phases (E = {st.n_edges}; a full-set scatter reads "
+        f"{eng.num_colors} x E = {eng.num_colors * st.n_edges})")
+    expect(per_sweep == st.n_edges, "main: the scatter subsets hold each "
+           "edge once (edges K2 reads a sweep = E)")
     # K1 and K2 at the shapes this path gives them (launches not counted)
     es0 = max(eng._color_edges, key=lambda es: es.n_edges)
     w0 = graph.edge_data["w"][es0.perm].contiguous()
+    c2 = max(range(eng.num_colors),
+             key=lambda c: eng._scatter_edges[c].n_edges)
     log_clocks("before K1/K2 timing")
     time_k1(recs[0], es0, w0, rng)
-    time_k2(recs[1], full, rng)
+    time_k2(recs[1], full, eng._scatter_edges[c2], c2, colors, rng)
     profile_steps(eng, graph)
 
     state = eng.init(graph)
@@ -591,11 +712,57 @@ def main_path(recs, rng):
     l1 = float((rank.double() - exact).abs().sum())
     log(f"main: float64 oracle {secs_o:.1f} s")
     expect(l1 <= ORACLE_L1_TOL, f"main: L1 vs float64 oracle {l1:.3e}")
+    full_ms = full_set_run(eng, graph, state)
     return {"n": n, "E": st.n_edges, "colors": eng.num_colors,
             "steps": steps, "total_updates": upd,
             "edges_touched": int(state.edges_touched), "run_s": secs,
             "ms_per_step": 1e3 * secs / max(steps, 1),
-            "updates_per_s": upd / secs, "peak_gib": peak / 2**30, "l1": l1}
+            "updates_per_s": upd / secs, "peak_gib": peak / 2**30, "l1": l1,
+            "k2_edges_per_sweep": per_sweep,
+            "full_scatter_ms_per_step": full_ms}
+
+
+def full_set_run(eng, graph, state):
+    """The main path again with every phase scattering over the full edge
+    set (the design before the sender-color subsets): the same schedule
+    (steps, updates, edges touched) and the same ranks and priorities to
+    the bit.  Returns its ms/step."""
+    from repro_torch.core.engine_base import Engine
+    eng._scatter_ctx = lambda phase: Engine._scatter_ctx(eng, phase)
+    try:
+        (full, _), secs = sync_time(
+            lambda: eng.run(eng.init(graph), max_steps=MAIN_MAX_STEPS))
+    finally:
+        del eng._scatter_ctx
+    steps = int(full.step_index)
+    log(f"main, full-set scatter: steps={steps} total_updates="
+        f"{int(full.total_updates)} edges_touched={int(full.edges_touched)}"
+        f"  {1e3 * secs / max(steps, 1):.3f} ms/step")
+    expect((steps, int(full.total_updates), int(full.edges_touched)) == (
+        int(state.step_index), int(state.total_updates),
+        int(state.edges_touched)), "main: the sender-color subsets take the "
+        "full-set scatter's schedule (steps, updates, edges touched)")
+    bits = [(a.view(torch.int32), b.view(torch.int32)) for a, b in (
+        (state.graph.vertex_data["rank"], full.graph.vertex_data["rank"]),
+        (state.prio, full.prio))]
+    expect(all(torch.equal(a, b) for a, b in bits), "main: ranks and "
+           "priorities equal to the bit with the full-set scatter")
+    return 1e3 * secs / max(steps, 1)
+
+
+def edgeset_bytes(sets) -> int:
+    """Device bytes of a list of EdgeSets: edge arrays, segment tables and
+    whatever tile tables they have built."""
+    total = 0
+    for es in sets:
+        seg = es.segments
+        ts = [es.senders, es.receivers, es.block_counts, seg.row_ids,
+              seg.row_seg, seg.seg_beg, seg.seg_row]
+        ts += [] if es.perm is None else [es.perm]
+        for tt in seg.__dict__.get("_tile_cache", {}).values():
+            ts += [tt.tile_beg, tt.tile_end, tt.multi_rows]
+        total += sum(t.numel() * t.element_size() for t in ts)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -694,6 +861,7 @@ def lbp_f32_path(rec, name, eng, graph):
     from repro_torch.core import ChromaticEngine
     from repro_torch.kernels.segsum.segsum import segment_sum_sorted_cuda
     time_k3(rec, graph.structure, LBP_STATES, LBP_F32[0])
+    k3_widths(rec, graph.structure)
     segment_sum_sorted_cuda.launches = 0
     vals, _ = lbp_course(name, eng, graph)
     rec.launches = segment_sum_sorted_cuda.launches
@@ -1106,7 +1274,6 @@ def time_k5(rec, q, k, v, window):
 
 
 def lm_phase(k5):
-    import dataclasses
     from repro_torch.configs import starcoder2_3b
     from repro_torch.configs.shapes import LM_SHAPES
     from repro_torch.kernels.flash_attention.flash_attention import \

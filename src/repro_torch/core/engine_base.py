@@ -175,9 +175,9 @@ class Engine:
 
     ``step`` runs ``scheduler.num_phases`` select → apply → reschedule
     phases; subclasses choose the scheduler — pass one via ``scheduler=`` or
-    override ``_make_scheduler`` — and may override ``_phase_edges`` to hand
-    each phase its own prepared ``EdgeSet`` (the chromatic per-color edge
-    ranges).
+    override ``_make_scheduler`` — and may override ``_phase_edges`` and
+    ``_scatter_ctx`` to hand each phase its own prepared ``EdgeSet`` for
+    the gather and the scatter (the chromatic per-color edge subsets).
 
     ``use_fused`` selects the fused gather⊕combine path for programs that
     declare registry gathers: None (default) enables it when the program
@@ -220,10 +220,9 @@ class Engine:
 
     @property
     def _full_edges(self) -> Optional[EdgeSet]:
-        """Full-graph EdgeSet for fused engines, built on first use.  The
-        chromatic engine gathers through its per-color subsets but still
-        needs this for the fused reschedule scatter (contributions target
-        every out-neighbor, not just the executing color's edges)."""
+        """Full-graph EdgeSet for fused engines, built on first use (the
+        chromatic engine gathers and scatters through its per-color
+        subsets and never needs it)."""
         if self.use_fused and self._full_edges_cache is None:
             st = self.structure
             self._full_edges_cache = EdgeSet.build(
@@ -235,10 +234,11 @@ class Engine:
         """Prepared EdgeSet for one phase (chromatic overrides per color)."""
         return self._full_edges
 
-    def _scatter_ctx(self) -> Optional[ScatterCtx]:
-        """ScatterCtx for the fused reschedule, or None to keep the dense
-        scatter.  Always the FULL edge structure — an executed vertex's
-        contribution targets every out-neighbor."""
+    def _scatter_ctx(self, phase: int) -> Optional[ScatterCtx]:
+        """ScatterCtx for one phase's fused reschedule, or None to keep the
+        dense scatter.  Here the full edge structure: any vertex may be
+        executed, and its contribution targets every out-neighbor
+        (chromatic overrides with the phase color's senders' edges)."""
         if not (self.use_fused and self.program.schedule_neighbors):
             return None
         return ScatterCtx(edges=self._full_edges)
@@ -249,7 +249,6 @@ class Engine:
         count, total = state.update_count, state.total_updates
         edges_t = state.edges_touched
         glob = state.globals_
-        scatter = self._scatter_ctx()
 
         for phase in range(self.scheduler.num_phases):
             mask, sched = self.scheduler.select(sched, prio, phase)
@@ -257,7 +256,8 @@ class Engine:
                 self.program, graph, mask, glob,
                 edges=self._phase_edges(phase))
             prio, sched = self.scheduler.reschedule(
-                sched, prio, mask, residual, scatter=scatter)
+                sched, prio, mask, residual,
+                scatter=self._scatter_ctx(phase))
             count = count + mask.to(torch.int32)
             total = total + torch.sum(mask)
             edges_t = edges_t + et

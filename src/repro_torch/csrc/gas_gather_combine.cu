@@ -55,28 +55,9 @@ namespace {
 
 using namespace repro_torch;
 
-constexpr int kTileBatch = 4;      // edges a thread keeps in flight when staging
-constexpr int kCombineChunk = 2048;  // partials combine_d1 stages at once
-
 __device__ __forceinline__ bool row_active(const int* block_active, int64_t v,
                                            int row_block) {
   return block_active == nullptr || block_active[v / row_block] != 0;
-}
-
-// acc + buf[0] + ... + buf[n - 1], added in order by one thread; loads run
-// ahead of the chain of adds.
-__device__ __forceinline__ float serial_sum(const float* buf, int n, float acc) {
-  int i = 0;
-#pragma unroll 2
-  for (; i + 8 <= n; i += 8) {
-    float v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = buf[i + j];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc = add_rn(acc, v[j]);
-  }
-  for (; i < n; ++i) acc = add_rn(acc, buf[i]);
-  return acc;
 }
 
 // Tiles [0, n_partial) leave partial[k]; the others write their rows.

@@ -3,22 +3,22 @@
 // The receiver-sorted edges of a row are cut into consecutive segments of
 // at most ROW_SEGMENT edges (src/repro_torch/kernels/csr.py builds the
 // tables).  The tables list only the rows that own an edge (row_ids), so a
-// color's edge subset costs tables of its own size.  K2, K3 and K1 at
-// D >= 2 run in two passes:
-//   pass 1: one warp per segment k sums its edges in edge order into
-//           partial[k] (a power-law hub spreads over many warps);
-//   pass 2: one thread per element of a listed row adds the row's segment
-//           partials in segment order; rows that own no edge are filled
-//           before (zeros, or K2's kept priority).
-// K1 at D == 1 stages each segment's terms in shared memory, where one
-// thread adds them, and writes one-segment rows in pass 1
-// (gas_gather_combine.cu); the order is the same.
+// color's edge subset costs tables of its own size.  Every kernel walks the
+// segments through tile tables (csr.py TileTables): one block a tile stages
+// the tile's terms in shared memory, coalesced, then one thread adds each
+// segment (K3: each segment and column) in edge order from 0.  A row of one
+// segment is written in that launch; a row of two or more leaves partial
+// sums, and a second launch adds them in segment order.  K1 at D >= 2 and
+// K3 at D > kThreads keep one warp a segment (lanes over the columns).
 // Each add is one correctly rounded add and each product one correctly
 // rounded multiply (__fadd_rn / __fmul_rn keep nvcc from contracting them
 // into an FMA).  That is the order and rounding of the plain PyTorch
 // versions (sequential index_add_ over segments, then over rows), so each
 // kernel's output equals its plain version bit for bit, and an engine on
-// the card takes the same schedule as on the CPU.
+// the card takes the same schedule as on the CPU.  A sum that starts from
+// +0 is never -0 (x + -0 = x, +0 + -0 = +0, x + -x = +0), so adding 0 to it
+// changes no bit, and terms that are exact zeros can be left out without
+// changing any bit of it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,7 +28,8 @@ namespace repro_torch {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = 32 * kWarpsPerBlock;
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kTileBatch = 4;        // edges a thread keeps in flight when staging
+constexpr int kCombineChunk = 2048;  // partials a D = 1 combine block stages at once
 
 // The work item (segment) this warp owns (warp-uniform), or -1 past the end.
 __device__ __forceinline__ int64_t warp_item(int64_t n_items) {
@@ -47,27 +48,20 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 
-// Σ term(e) for e in [beg, end), added in edge order.  Lanes load 32
-// consecutive edges at once (coalesced), one chunk ahead of the adds; the
-// shuffle then feeds the chunk to the running sum in lane order.  Every
-// lane returns the same sum.
-template <typename T, typename Term>
-__device__ __forceinline__ T ordered_range_sum(int64_t beg, int64_t end, Term term) {
-  const int lane = threadIdx.x & 31;
-  T acc = 0;
-  T m = (beg + lane < end) ? term(beg + lane) : T(0);
-  for (int64_t base = beg; base < end; base += 32) {
-    const int64_t next = base + 32 + lane;
-    const T m_next = (next < end) ? term(next) : T(0);
-    if (end - base >= 32) {
+// acc + buf[0] + ... + buf[n - 1], added in order by one thread; loads run
+// ahead of the chain of adds.
+template <typename T>
+__device__ __forceinline__ T serial_sum(const T* buf, int n, T acc) {
+  int i = 0;
+#pragma unroll 2
+  for (; i + 8 <= n; i += 8) {
+    T v[8];
 #pragma unroll
-      for (int k = 0; k < 32; ++k) acc = add_rn(acc, __shfl_sync(kFullMask, m, k));
-    } else {
-      const int cnt = (int)(end - base);
-      for (int k = 0; k < cnt; ++k) acc = add_rn(acc, __shfl_sync(kFullMask, m, k));
-    }
-    m = m_next;
+    for (int j = 0; j < 8; ++j) v[j] = buf[i + j];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc = add_rn(acc, v[j]);
   }
+  for (; i < n; ++i) acc = add_rn(acc, buf[i]);
   return acc;
 }
 

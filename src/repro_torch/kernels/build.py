@@ -38,12 +38,14 @@ SIGNATURES = {
     # tile_beg, tile_end, multi_rows, partial, out, n_rows, n_listed, n_seg,
     # d, row_block, n_tiles, n_partial, n_multi, tile_cap, tile_segs, stream
     "gas_gather_combine": (_P,) * 13 + (_I,) * 10 + (_P,),
-    # contrib, prio, consume, w, snd, row_ids, row_seg, seg_beg, partial,
-    # out, n_rows, n_listed, n_seg, stream
-    "gas_scatter_reschedule": (_P,) * 10 + (_I,) * 3 + (_P,),
-    # msgs, row_ids, row_seg, seg_beg, partial, out, n_rows, n_listed,
-    # n_seg, d, f64, stream
-    "segment_sum_sorted": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # contrib, prio, consume, w, snd, row_ids, row_seg, seg_beg, seg_row,
+    # tile_beg, tile_end, multi_rows, partial, out, n_rows, n_tiles,
+    # n_partial, n_multi, tile_cap, tile_segs, stream
+    "gas_scatter_reschedule": (_P,) * 14 + (_I,) * 6 + (_P,),
+    # msgs, row_ids, row_seg, seg_beg, seg_row, tile_beg, tile_end,
+    # multi_rows, partial, out, n_rows, n_listed, n_seg, d, f64, n_tiles,
+    # n_partial, n_multi, chunk, tile_segs, stream
+    "segment_sum_sorted": (_P,) * 10 + (_I,) * 10 + (_P,),
     # table, ids, out, n_bags, bag, d, rows, fields, bf16, vec_ok, stream
     "embedding_bag": (_P,) * 3 + (_L, _I, _I, _L) + (_I,) * 3 + (_P,),
     # q, k, v, out, B, S, T, H, KV, d, causal, window, scale, bf16, stream

@@ -5,42 +5,59 @@ A row's edges (a run of equal receivers) are cut into consecutive segments
 of at most ``ROW_SEGMENT`` edges.  Every row sum in the port is
 taken in this order: each segment's terms added one by one in edge order,
 then the row's segment sums added in segment order.  The CUDA kernels sum
-the segments in parallel (K2 and K3 give one warp to one segment), so a
-power-law hub with millions of in-edges spreads over hundreds of segments
-instead of serialising onto one; the plain
-versions add in the same order, so kernel and plain version agree bit for
-bit.  A row with at most ``ROW_SEGMENT`` edges is one segment, and its sum
-is the plain sequential sum (what ``jax.ops.segment_sum`` computes on the
-CPU).
+the segments in parallel, so a power-law hub with millions of in-edges
+spreads over hundreds of segments instead of serialising onto one; the
+plain versions add in the same order, so kernel and plain version agree
+bit for bit.  A row with at most ``ROW_SEGMENT`` edges is one segment, and
+its sum is the plain sequential sum (what ``jax.ops.segment_sum`` computes
+on the CPU).
 
-K1 (the gather on the D = 1 path) reads the same segments through
-``TileTables``, built on its first launch: a thread block stages a tile's
-products in shared memory and one thread adds each of its segments.  Runs
-of short segments of one-segment rows share a tile; every other segment
-is a tile of its own.  The tiles change who adds, not the order of the
-adds.
+An edge subset may be cut at the segments of the set it came from
+(``cuts``): each of its segments is then the subset's edges inside one
+segment of the full set.  Where the left-out edges add exact zeros, the
+subset's sums equal the full set's to the bit (``ChromaticEngine``'s
+sender-color scatter subsets).
+
+K1 at D = 1, K2 and K3 at D <= 256 read the segments through
+``TileTables``, built on their first launch: a thread block stages a
+tile's terms in shared memory and one thread adds each of its segments
+(K3: each (segment, column) pair).
+Runs of short segments of one-segment rows share a tile; every other
+segment is a tile of its own.  The tiles change who adds, not the order of
+the adds.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 ROW_SEGMENT = 2048
-#: K1's tiles: runs of segments of at most ``SHORT_SEGMENT`` edges share a
-#: tile, at most ``TILE_SEGMENTS`` of them (one a thread), all starting
-#: inside one aligned window of ``TILE_WINDOW`` edges, so their edges fit
-#: ``TILE_WINDOW + SHORT_SEGMENT - 1`` floats of shared memory; a longer
-#: segment is a tile of its own (at most ``ROW_SEGMENT`` edges).
-#: ``TILE_SEGMENTS`` is tied to the kernel's block of ``kThreads`` (256)
-#: threads in csrc/row_reduce.cuh: the C entry refuses tiles of more
-#: segments than threads.
+#: K1's and K2's tiles (D = 1): runs of segments of at most
+#: ``SHORT_SEGMENT`` edges share a tile, at most ``TILE_SEGMENTS`` of them
+#: (one a thread), all starting inside one aligned window of
+#: ``TILE_WINDOW`` edges, so their edges fit ``TILE_WINDOW + SHORT_SEGMENT
+#: - 1`` floats of shared memory; a longer segment is a tile of its own (at
+#: most ``ROW_SEGMENT`` edges).  ``TILE_SEGMENTS`` is tied to the kernels'
+#: block of ``kThreads`` (256) threads in csrc/row_reduce.cuh: the C entries
+#: refuse tiles of more segments (K3: more (segment, column) pairs) than
+#: threads.
 SHORT_SEGMENT = 128
 TILE_SEGMENTS = 256
 TILE_WINDOW = 1024
+
+
+class TileShape(NamedTuple):
+    """How ``tile_tables`` packs segments: at most ``segments`` a tile,
+    each of at most ``short`` edges, all starting in one aligned window of
+    ``window`` edges."""
+
+    segments: int = TILE_SEGMENTS
+    short: int = SHORT_SEGMENT
+    window: int = TILE_WINDOW
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -67,10 +84,13 @@ class RowSegments:
     seg_row: torch.Tensor
 
     @staticmethod
-    def build(receivers: np.ndarray, n_rows: int, device) -> "RowSegments":
+    def build(receivers: np.ndarray, n_rows: int, device,
+              cuts: Optional[np.ndarray] = None) -> "RowSegments":
         """Tables for sorted ``receivers`` (real edges only, all
-        < ``n_rows``)."""
-        row_ids, row_seg, seg_beg, seg_row = segment_tables(receivers)
+        < ``n_rows``).  ``cuts`` [E] (optional, non-decreasing): the segment
+        of the full edge set each edge lies in; a segment then ends exactly
+        where the cut changes (``segment_tables``)."""
+        row_ids, row_seg, seg_beg, seg_row = segment_tables(receivers, cuts)
 
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
@@ -90,27 +110,37 @@ class RowSegments:
             (self.seg_beg[1:] - self.seg_beg[:-1]).long())
 
     @functools.cached_property
+    def _tile_cache(self) -> dict:
+        return {}
+
+    def tiles_for(self, shape: TileShape) -> "TileTables":
+        """The tile tables of ``shape``, built on first use and kept."""
+        if shape not in self._tile_cache:
+            self._tile_cache[shape] = TileTables.build(self, shape)
+        return self._tile_cache[shape]
+
+    @functools.cached_property
     def tiles(self) -> "TileTables":
-        """K1's tile tables, built on first use (K2 and K3 never ask)."""
-        return TileTables.build(self)
+        """K1's and K2's tile tables (D = 1), built on first use."""
+        return self.tiles_for(TileShape())
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class TileTables:
-    """K1's work list over one ``RowSegments``, on its device.
+    """A kernel's work list over one ``RowSegments``, on its device.
 
     ``tile_beg``/``tile_end`` [n_tiles] i32: tile j sums segments
     ``[tile_beg[j], tile_end[j])``, whose edges (one contiguous range)
     number at most ``tile_cap``.  The first ``n_partial`` tiles are the
     segments of rows of two or more segments, one a tile, in segment order;
-    they leave partial sums.  Then each segment longer than ``SHORT_SEGMENT`` of a
-    one-segment row, one a tile; then runs of the other segments, packed at
-    most ``TILE_SEGMENTS`` to a tile, all starting inside one aligned window
-    of ``TILE_WINDOW`` edges.  The longest chains of adds come first in the
-    grid.  ``tile_segs`` is the most segments of any tile (at most
-    ``TILE_SEGMENTS``).  ``multi_rows`` [n_multi] i32: the listed indices of
-    the rows of two or more segments, the only rows whose partials the
-    combine pass adds.
+    they leave partial sums.  Then each segment longer than the shape's
+    ``short`` of a one-segment row, one a tile; then runs of the other
+    segments, packed at most ``shape.segments`` to a tile, all starting
+    inside one aligned window of ``shape.window`` edges.  The longest
+    chains of adds come first in the grid.  ``tile_segs`` is the most
+    segments of any tile (at most ``shape.segments``).  ``multi_rows``
+    [n_multi] i32: the listed indices of the rows of two or more segments,
+    the only rows whose partials the combine pass adds.
     """
 
     n_tiles: int
@@ -123,11 +153,12 @@ class TileTables:
     multi_rows: torch.Tensor
 
     @staticmethod
-    def build(seg: RowSegments) -> "TileTables":
+    def build(seg: RowSegments, shape: TileShape = TileShape()
+              ) -> "TileTables":
         tile_beg, tile_end, n_partial, cap, multi_rows = tile_tables(
-            seg.row_seg.cpu().numpy(), seg.seg_beg.cpu().numpy())
+            seg.row_seg.cpu().numpy(), seg.seg_beg.cpu().numpy(), shape)
         segs = int((tile_end - tile_beg).max()) if tile_beg.size else 0
-        assert segs <= TILE_SEGMENTS, segs
+        assert segs <= shape.segments, segs
         dev = seg.seg_beg.device
 
         def t(a):
@@ -140,7 +171,8 @@ class TileTables:
             multi_rows=t(multi_rows))
 
 
-def tile_tables(row_seg: np.ndarray, seg_beg: np.ndarray):
+def tile_tables(row_seg: np.ndarray, seg_beg: np.ndarray,
+                shape: TileShape = TileShape()):
     """Host tables ``(tile_beg, tile_end, n_partial, tile_cap, multi_rows)``
     of ``TileTables`` from the segment tables (``tile_cap``: the most edges
     of any tile); vectorised, O(segments)."""
@@ -148,20 +180,20 @@ def tile_tables(row_seg: np.ndarray, seg_beg: np.ndarray):
     seg_beg = np.asarray(seg_beg, np.int64)
     n_seg_row = np.diff(row_seg)
     single = np.repeat(n_seg_row == 1, n_seg_row)
-    packed = single & (np.diff(seg_beg) <= SHORT_SEGMENT)
+    packed = single & (np.diff(seg_beg) <= shape.short)
     alone = np.concatenate([np.flatnonzero(~single),
                             np.flatnonzero(single & ~packed)])
     k = np.flatnonzero(packed)
     starts = np.zeros(0, np.int64)
     if k.size:
         # a group: consecutive packed segments that start in one window;
-        # a tile: up to TILE_SEGMENTS of a group's segments
+        # a tile: up to shape.segments of a group's segments
         new_group = np.ones(k.size, bool)
         new_group[1:] = (np.diff(k) != 1) | (
-            np.diff(seg_beg[k] // TILE_WINDOW) != 0)
+            np.diff(seg_beg[k] // shape.window) != 0)
         pos = np.arange(k.size)
         rank = pos - np.maximum.accumulate(np.where(new_group, pos, 0))
-        starts = np.flatnonzero(rank % TILE_SEGMENTS == 0)
+        starts = np.flatnonzero(rank % shape.segments == 0)
     tile_beg = np.concatenate([alone, k[starts]])
     tile_end = np.concatenate([alone + 1, np.append(k[starts[1:] - 1],
                                                     k[-1:]) + 1])
@@ -171,14 +203,33 @@ def tile_tables(row_seg: np.ndarray, seg_beg: np.ndarray):
             np.flatnonzero(n_seg_row > 1))
 
 
-def segment_tables(receivers: np.ndarray):
+def segment_tables(receivers: np.ndarray,
+                   cuts: Optional[np.ndarray] = None):
     """Host tables ``(row_ids [R], row_seg [R+1], seg_beg [S+1], seg_row
-    [S])`` for sorted ``receivers`` [E]; O(E), whatever the row count."""
+    [S])`` for sorted ``receivers`` [E]; O(E), whatever the row count.
+    Without ``cuts``, rows are cut every ``ROW_SEGMENT`` edges; with
+    ``cuts`` [E] (the full set's segment of each edge of a subset), a
+    segment is a run of equal cuts, so no segment crosses a full-set
+    segment boundary and none is cut further."""
     r = np.asarray(receivers, np.int64)
     e = r.size
     row_beg = np.flatnonzero(np.diff(r, prepend=-1)) if e else \
         np.zeros(0, np.int64)
     row_ids = r[row_beg]
+    if cuts is not None:
+        c = np.asarray(cuts, np.int64)
+        if c.shape != r.shape:
+            raise ValueError(f"cuts: {c.shape} for {r.shape} receivers")
+        beg = np.flatnonzero(np.diff(c, prepend=-1)) if e else \
+            np.zeros(0, np.int64)
+        # a full-set segment lies in one row: every row starts a segment
+        if (np.diff(c) < 0).any() or not np.isin(row_beg, beg).all():
+            raise ValueError("cuts must be non-decreasing and change at "
+                             "every new receiver")
+        if beg.size and np.diff(np.append(beg, e)).max() > ROW_SEGMENT:
+            raise ValueError(f"a cut segment exceeds {ROW_SEGMENT} edges")
+        row_seg = np.append(np.searchsorted(beg, row_beg), beg.size)
+        return row_ids, row_seg, np.append(beg, e), r[beg]
     row_len = np.diff(np.append(row_beg, e))
     n_seg_row = -(-row_len // ROW_SEGMENT)
     row_seg = np.concatenate([[0], np.cumsum(n_seg_row)]).astype(np.int64)
@@ -187,6 +238,13 @@ def segment_tables(receivers: np.ndarray):
     seg_beg = np.concatenate([np.repeat(row_beg, n_seg_row)
                               + local * ROW_SEGMENT, [e]])
     return row_ids, row_seg, seg_beg, np.repeat(row_ids, n_seg_row)
+
+
+def edge_segments(receivers: np.ndarray) -> np.ndarray:
+    """[E] i64: the segment of each edge of sorted ``receivers`` (host) —
+    the ``cuts`` of a subset taken from these edges."""
+    seg_beg = segment_tables(receivers)[2]
+    return np.repeat(np.arange(seg_beg.size - 1), np.diff(seg_beg))
 
 
 def n_real_edges(receivers: torch.Tensor, n_rows: int) -> int:

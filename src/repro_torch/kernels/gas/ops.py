@@ -4,7 +4,8 @@
 ``EdgeSet`` packages a (possibly color-restricted) receiver-sorted edge
 subset with its device arrays and its CSR rows cut into segments
 (``kernels/csr.py``); engines build them once per structure (or once per
-color) on the host.  ``gather_combine`` and
+color: by receiver color for the gather, by sender color for the
+scatter) on the host.  ``gather_combine`` and
 ``scatter_reschedule`` then dispatch on where the tensors lie:
 
     CUDA tensor → the hand-written kernel (or raise)
@@ -43,6 +44,9 @@ class EdgeSet:
     CUDA kernels read the real edges through ``segments`` (the rows that own
     an edge, cut into segments, on the device: tables of the subset's size,
     so a color's subset costs nothing per vertex) and never touch the pads.
+    A subset built with ``cuts`` (the full set's segment of each of its
+    edges) is cut at the full set's segment boundaries, so a scatter over
+    it adds in the full set's order.
     ``row_ptr`` gives the CSR offsets [N+1] on the host, on first use.
     ``eblk_start``/``n_eblk``/``max_eblk`` are the JAX kernels' block
     offsets (host numpy; no CUDA kernel needs them).  ``perm`` maps the
@@ -84,6 +88,7 @@ class EdgeSet:
         n_vertices: int,
         perm: Optional[np.ndarray] = None,
         *,
+        cuts: Optional[np.ndarray] = None,
         device: DeviceLike = "cuda",
     ) -> "EdgeSet":
         from repro_torch.core.graph import csr_block_offsets
@@ -108,7 +113,7 @@ class EdgeSet:
         counts = np.bincount(
             np.minimum(receivers // ROW_BLOCK, nblk - 1), minlength=nblk
         ) if E else np.zeros(nblk)
-        segments = RowSegments.build(receivers, n_vertices, dev)
+        segments = RowSegments.build(receivers, n_vertices, dev, cuts)
 
         def t(a, dtype):
             return torch.from_numpy(np.asarray(a, dtype)).to(dev)
@@ -164,10 +169,16 @@ def gather_combine(
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ScatterCtx:
-    """How an engine wants its reschedule scatter fused: the prepared edge
-    subset (the FULL out-edge structure — contributions target every
-    neighbor, so per-color subsets are wrong here) and optional per-edge
-    weights (None means all real edges weigh 1)."""
+    """How an engine wants one phase's reschedule scatter fused: the
+    prepared edge set and optional per-edge weights (None means all real
+    edges weigh 1; a subset's weights are the full set's ``[perm]``).
+
+    The set must hold every edge whose sender can contribute a nonzero
+    term: the full out-edge structure in general.  Subsets by *receiver*
+    color would drop deposits; a subset by *sender* color, cut at the full
+    set's segments (``EdgeSet.build(..., cuts=...)``), drops only the exact
+    ``+0`` terms of senders outside the phase's color, and its sums equal
+    the full set's to the bit (``ChromaticEngine``)."""
 
     edges: EdgeSet
     weights: Optional[torch.Tensor] = None   # [E] or [E_pad]; None = ones

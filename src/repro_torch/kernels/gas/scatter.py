@@ -4,7 +4,8 @@
 receiver-sorted CSR rows (cut into segments, ``kernels/csr.py``) — the
 scheduler update ``T ← (T \\ executed) ∪ T'`` of every phase of a fused
 engine.  The kernel is CUDA C++ for sm_90a in
-``repro_torch/csrc/gas_scatter_reschedule.cu``.
+``repro_torch/csrc/gas_scatter_reschedule.cu``; it walks K1's D = 1 tile
+tables (``segments.tiles``), built on the set's first launch.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ def gas_scatter_reschedule_cuda(
     segments: RowSegments,       # the rows' segment tables
     weights: Optional[torch.Tensor] = None,  # [>= E] f32; None = all 1
 ) -> torch.Tensor:
-    """Launches K2 → ``[n_rows]`` f32.  Counts each launch in
+    """Launches K2 → ``[n_rows]`` f32.  Reads ``segments.tiles`` (built on
+    the first launch over these segments).  Counts each launch in
     ``.launches``."""
     dev = contrib.device
     n_rows = segments.n_rows
@@ -40,15 +42,22 @@ def gas_scatter_reschedule_cuda(
     out = torch.empty(n_rows, dtype=torch.float32, device=dev)
     if n_rows == 0:
         return out
-    partial = torch.empty(segments.n_segments, dtype=torch.float32,
-                          device=dev)
+    tiles = segments.tiles              # built on the first launch
+    partial = torch.empty(segments.n_segments if tiles.n_partial else 0,
+                          dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None or t.numel() == 0 else t.data_ptr()
+
     rc = build.library().gas_scatter_reschedule(
         contrib.data_ptr(), prio.data_ptr(), consume.data_ptr(),
-        None if weights is None else weights.data_ptr(),
-        senders.data_ptr(), segments.row_ids.data_ptr(),
+        ptr(weights), senders.data_ptr(), segments.row_ids.data_ptr(),
         segments.row_seg.data_ptr(), segments.seg_beg.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), n_rows, segments.n_listed,
-        segments.n_segments, build.stream_ptr(dev))
+        segments.seg_row.data_ptr(), ptr(tiles.tile_beg),
+        ptr(tiles.tile_end), ptr(tiles.multi_rows), ptr(partial),
+        out.data_ptr(), n_rows, tiles.n_tiles, tiles.n_partial,
+        tiles.n_multi, tiles.tile_cap, tiles.tile_segs,
+        build.stream_ptr(dev))
     build.check(rc, "gas_scatter_reschedule")
     gas_scatter_reschedule_cuda.launches += 1
     return out

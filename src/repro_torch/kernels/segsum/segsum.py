@@ -5,7 +5,9 @@ block offsets of the JAX package's blocked layout.
 ``[E, D]`` (f32 or f64) — the dense ⊕-combine of the apply phase.  The
 kernel is CUDA C++ for sm_90a in ``repro_torch/csrc/segment_sum_sorted.cu``;
 it reads each row's message range through the row segment tables
-(``kernels/csr.py``) and needs no block offsets.
+(``kernels/csr.py``) and needs no block offsets.  At D <= ``TILE_SEGMENTS``
+it walks tile tables of ``tile_shape(D, element size)``, built on the first
+launch at that shape.
 """
 from __future__ import annotations
 
@@ -15,10 +17,28 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.csr import RowSegments
+from repro_torch.kernels.csr import (SHORT_SEGMENT, TILE_SEGMENTS,
+                                     RowSegments, TileShape)
 
 ROW_BLOCK = 128
 EDGE_BLOCK = 512
+#: shared memory a K3 block stages messages in, at most (one chunk)
+STAGE_BYTES = 32 * 1024
+
+
+def tile_shape(d: int, itemsize: int) -> Tuple[TileShape, int]:
+    """K3's tiles for ``d`` columns (``d <= TILE_SEGMENTS``) of
+    ``itemsize``-byte messages, and the edges a block stages at once.
+
+    A tile holds at most ``TILE_SEGMENTS // d`` segments, one thread a
+    (segment, column) pair; a packed tile's segments (at most ``short``
+    edges each, starting in one window) span at most the staged edges, so
+    it is read in one chunk; a longer segment is a tile alone and streams
+    through the stage in chunks."""
+    stage = STAGE_BYTES // (itemsize * d)
+    short = max(1, min(SHORT_SEGMENT, stage // 4))
+    return TileShape(segments=TILE_SEGMENTS // d, short=short,
+                     window=stage - short + 1), stage
 
 
 def block_offsets(receivers: np.ndarray, n_rows: int,
@@ -41,8 +61,9 @@ def block_offsets(receivers: np.ndarray, n_rows: int,
 def segment_sum_sorted_cuda(msgs: torch.Tensor,
                             segments: RowSegments) -> torch.Tensor:
     """Launches K3: msgs ``[E, D]`` (f32 or f64) with its receivers' segment
-    tables → ``[n_rows, D]`` of the same dtype.  Counts each launch in
-    ``.launches``."""
+    tables → ``[n_rows, D]`` of the same dtype.  At D <= ``TILE_SEGMENTS``
+    it reads ``segments.tiles_for(tile_shape(D, element size))``.  Counts
+    each launch in ``.launches``."""
     dev = msgs.device
     if msgs.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"msgs: expected float32 or float64, got "
@@ -54,14 +75,27 @@ def segment_sum_sorted_cuda(msgs: torch.Tensor,
     out = torch.empty((n_rows, d), dtype=msgs.dtype, device=dev)
     if n_rows == 0 or d == 0:
         return out
-    partial = torch.empty((segments.n_segments, d), dtype=msgs.dtype,
-                          device=dev)
+    if d <= TILE_SEGMENTS:
+        shape, stage = tile_shape(d, msgs.element_size())
+        tiles = segments.tiles_for(shape)   # built on the first launch
+        tables = (tiles.tile_beg, tiles.tile_end, tiles.multi_rows)
+        counts = (tiles.n_tiles, tiles.n_partial, tiles.n_multi,
+                  min(stage, tiles.tile_cap), tiles.tile_segs)
+        n_partial = segments.n_segments if tiles.n_partial else 0
+    else:
+        tables, counts = (None,) * 3, (0,) * 5
+        n_partial = segments.n_segments
+    partial = torch.empty((n_partial, d), dtype=msgs.dtype, device=dev)
+
+    def ptr(t):
+        return None if t is None or t.numel() == 0 else t.data_ptr()
+
     rc = build.library().segment_sum_sorted(
         msgs.data_ptr(), segments.row_ids.data_ptr(),
         segments.row_seg.data_ptr(), segments.seg_beg.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), n_rows, segments.n_listed,
-        segments.n_segments, d, int(msgs.dtype == torch.float64),
-        build.stream_ptr(dev))
+        segments.seg_row.data_ptr(), *map(ptr, tables), ptr(partial),
+        out.data_ptr(), n_rows, segments.n_listed, segments.n_segments, d,
+        int(msgs.dtype == torch.float64), *counts, build.stream_ptr(dev))
     build.check(rc, "segment_sum_sorted")
     segment_sum_sorted_cuda.launches += 1
     return out

@@ -6,7 +6,8 @@ engines, fused and dense, with equal step, update and edges-touched counts
 Chromatic within 1e-5 of the JAX fixed point: its message updates go
 through logsumexp, whose last bits differ between the two libraries, so
 only the fixed point is compared.  Scheduler selections are compared
-exactly.
+exactly.  ChromaticEngine's sender-color scatter subsets give, phase by
+phase, the priorities of a full-set scatter to the bit.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +28,7 @@ from repro_torch.core import scheduler as tsch
 from repro_torch.core.bsp import BSPEngine
 from repro_torch.core.chromatic import ChromaticEngine
 from repro_torch.core.dynamic import DynamicEngine
+from repro_torch.core.engine_base import Engine
 from repro_torch.core.sync_op import FnSyncOp
 from repro_torch.graphs import generators as tgen
 
@@ -113,6 +115,65 @@ class TestPageRank:
         ts = te.step(te.init(tg))
         np.testing.assert_allclose(float(ts.globals_["mass"]),
                                    float(js.globals_["mass"]), rtol=1e-6)
+
+
+class _FullScatter(ChromaticEngine):
+    """ChromaticEngine scattering over the full edge set in every phase."""
+
+    def _scatter_ctx(self, phase):
+        return Engine._scatter_ctx(self, phase)
+
+
+class TestScatterSubsets:
+    def test_phase_priorities_equal_full_set(self, pagerank_graphs):
+        """Over 4 sweeps, the priorities after every color phase are equal
+        to the bit with the phase color's sender subset and with the full
+        edge set; each subset is smaller than E and together they hold E."""
+        _, tg = pagerank_graphs
+        prog = tpr.PageRankProgram(n_vertices=260)
+        trails = []
+        for cls in (ChromaticEngine, _FullScatter):
+            eng = cls(prog, tg, tolerance=1e-6, device="cpu")
+            trail = []
+            resched = eng.scheduler.reschedule
+
+            def record(*args, _r=resched, _t=trail, **kw):
+                prio, sched = _r(*args, **kw)
+                _t.append(prio.clone())
+                return prio, sched
+
+            eng.scheduler.reschedule = record
+            state = eng.init(tg)
+            for _ in range(4):
+                state = eng.step(state)
+            trails.append(trail)
+            if cls is ChromaticEngine:
+                sizes = [eng._scatter_ctx(c).edges.n_edges
+                         for c in range(eng.num_colors)]
+                assert sum(sizes) == tg.structure.n_edges
+                assert max(sizes) < tg.structure.n_edges
+        assert len(trails[0]) == len(trails[1]) == 4 * eng.num_colors
+        for a, b in zip(*trails):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def test_matches_jax_chromatic(self, pagerank_graphs):
+        """The subsets change no count: within 1e-5 of the JAX
+        ChromaticEngine's fixed point, equal steps, updates and
+        edges_touched (the gather's edges; the scatter is not counted)."""
+        jg, tg = pagerank_graphs
+        je = JChromatic(jpr.PageRankProgram(n_vertices=260), jg,
+                        tolerance=1e-6)
+        te = ChromaticEngine(tpr.PageRankProgram(n_vertices=260), tg,
+                             tolerance=1e-6, device="cpu")
+        assert te._scatter_edges is not None
+        js, _ = je.run(je.init(jg), max_steps=60)
+        ts, _ = te.run(te.init(tg), max_steps=60)
+        diff = np.abs(np.asarray(js.graph.vertex_data["rank"])
+                      - ts.graph.vertex_data["rank"].numpy()).max()
+        assert diff <= TOL
+        assert int(js.step_index) == int(ts.step_index)
+        assert int(js.total_updates) == int(ts.total_updates)
+        assert int(js.edges_touched) == int(ts.edges_touched)
 
 
 class TestLBP:

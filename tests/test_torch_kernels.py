@@ -1,6 +1,8 @@
 """The port's kernel dispatch on the CPU (the plain versions of K1, K2, K3)
 against the JAX package's functions, through its reference and through
-the Pallas kernel in interpret mode.
+the Pallas kernel in interpret mode; the kernels' tile tables and their
+order of adds, walked on the host; K2 over sender-color subsets cut at the
+full set's segments, equal to the full set to the bit.
 
 Tolerance: 2e-5 of the largest magnitude of the expected output, the JAX
 package's own kernel bar (tests/test_gas_kernel.py).  The ``cuda`` tests
@@ -20,8 +22,8 @@ from repro.kernels.segsum import segsum as jsegk
 from repro_torch.kernels import build
 from repro_torch.kernels.csr import (ROW_SEGMENT, SHORT_SEGMENT,
                                      TILE_SEGMENTS, TILE_WINDOW, RowSegments,
-                                     TileTables, segment_tables,
-                                     segmented_row_sum)
+                                     TileTables, edge_segments,
+                                     segment_tables, segmented_row_sum)
 from repro_torch.kernels.gas import ops as tops
 from repro_torch.kernels.gas.gas import EDGE_BLOCK, ROW_BLOCK
 from repro_torch.kernels.segsum import ops as tseg
@@ -138,6 +140,14 @@ def _tile_cases():
 TILE_CASES = [(c[0], c[2], c[3]) for c in CASES] + _tile_cases()
 
 
+def _ordered(xs, acc=None):
+    """Sum of ``xs`` added one by one in float32/64 from ``acc`` (0)."""
+    acc = xs.dtype.type(0) if acc is None else acc
+    for x in xs:
+        acc = xs.dtype.type(acc + x)
+    return acc
+
+
 def _tile_walk(terms, seg, tiles, n_rows, active=None):
     """K1's D = 1 sums in the kernel's order, in float32 on the host: each
     tile stages its products, then each of its segments is summed from 0 in
@@ -150,13 +160,6 @@ def _tile_walk(terms, seg, tiles, n_rows, active=None):
     act = np.ones(n_rows, bool) if active is None else active
     out = np.zeros(n_rows, np.float32)
     partial = np.full(seg.n_segments, np.nan, np.float32)
-
-    def ordered(xs):
-        acc = np.float32(0)
-        for x in xs:
-            acc = np.float32(acc + x)
-        return acc
-
     for j, (lo, hi) in enumerate(zip(tiles.tile_beg.numpy(),
                                      tiles.tile_end.numpy())):
         if not act[sr[lo:hi]].any():
@@ -165,14 +168,14 @@ def _tile_walk(terms, seg, tiles, n_rows, active=None):
         staged = terms[base:sb[hi]].copy()
         for k in range(lo, hi):
             if act[sr[k]]:
-                acc = ordered(staged[sb[k] - base:sb[k + 1] - base])
+                acc = _ordered(staged[sb[k] - base:sb[k + 1] - base])
                 if j < tiles.n_partial:
                     partial[k] = acc
                 else:
                     out[sr[k]] = np.float32(0) + acc
     for i in tiles.multi_rows.numpy():
         if act[ri[i]]:
-            out[ri[i]] = ordered(partial[rs[i]:rs[i + 1]])
+            out[ri[i]] = _ordered(partial[rs[i]:rs[i + 1]])
     return out
 
 
@@ -472,6 +475,233 @@ class TestSegSum:
         np.testing.assert_array_equal(out[:, 0].numpy(), [2, 3, 0, 0, 1])
 
 
+def _scatter_graph():
+    """(senders, receivers, n, colors, n_colors): a hub of 2·ROW_SEGMENT +
+    300 in-edges whose senders span the colors, Pareto rows beside it, and
+    a last color none of whose vertices sends an edge."""
+    rng = np.random.default_rng(11)
+    n, n_colors = 3000, 6
+    colors = rng.integers(0, n_colors, n).astype(np.int32)
+    pool = np.flatnonzero(colors < n_colors - 1)
+    other = np.minimum((rng.pareto(1.2, 20000) * 3).astype(np.int64), n - 1)
+    recv = np.sort(np.concatenate([np.full(2 * ROW_SEGMENT + 300, 17),
+                                   other])).astype(np.int32)
+    snd = rng.choice(pool, recv.size).astype(np.int32)
+    return snd, recv, n, colors, n_colors
+
+
+def _sender_subsets(snd, recv, n, colors, n_colors, device="cpu"):
+    """ChromaticEngine's scatter subsets: per sender color, cut at the full
+    set's segments."""
+    cut = edge_segments(recv)
+    return [tops.EdgeSet.build(snd[idx], recv[idx], n, perm=idx,
+                               cuts=cut[idx], device=device)
+            for idx in (np.flatnonzero(colors[snd] == c)
+                        for c in range(n_colors))]
+
+
+def _scatter_inputs(rng, n, colors, c):
+    """contrib (+0 off color ``c`` and off the executed set; some on-color
+    zeros), prio (some -0.0 and +0.0 entries) and consume."""
+    mask = (colors == c) & (rng.random(n) < 0.7)
+    contrib = np.where(mask, rng.random(n) * (rng.random(n) < 0.9),
+                       0).astype(np.float32)
+    prio = rng.random(n).astype(np.float32)
+    prio[rng.random(n) < 0.05] = -0.0
+    prio[rng.random(n) < 0.05] = 0.0
+    return (torch.from_numpy(contrib), torch.from_numpy(prio),
+            torch.from_numpy(mask))
+
+
+class TestScatterSubsets:
+    """K2 over ChromaticEngine's sender-color subsets."""
+
+    def test_cut_tables(self):
+        """Every subset edge in one segment, in order; no segment crosses a
+        full-set segment boundary, and none is cut further."""
+        snd, recv, n, colors, n_colors = _scatter_graph()
+        full = edge_segments(recv)
+        sets = _sender_subsets(snd, recv, n, colors, n_colors)
+        assert sets[-1].n_edges == 0
+        assert sum(es.n_edges for es in sets) == recv.size
+        for es in sets:
+            seg = es.segments
+            sb = seg.seg_beg.numpy().astype(np.int64)
+            assert sb[0] == 0 and sb[-1] == es.n_edges
+            assert (np.diff(sb) > 0).all()
+            assert (np.diff(sb) <= ROW_SEGMENT).all()
+            cut = full[es.perm.numpy()]
+            k = np.repeat(np.arange(seg.n_segments), np.diff(sb))
+            # one full-set segment a subset segment, each one only once
+            assert (np.diff(cut)[np.diff(k) == 0] == 0).all()
+            assert (np.diff(cut[sb[:-1]]) > 0).all()
+            r = es.receivers[:es.n_edges].numpy()
+            np.testing.assert_array_equal(r[sb[:-1]], seg.seg_row.numpy())
+            np.testing.assert_array_equal(np.unique(r), seg.row_ids.numpy())
+        # the hub's subset segments in a color: one per full segment it hits
+        hub = sets[0].segments
+        assert int((hub.seg_row == 17).sum()) == len(
+            np.unique(full[(recv == 17) & (colors[snd] == 0)]))
+
+    def test_cuts_refused_when_inconsistent(self):
+        recv = np.array([0, 0, 1, 1], np.int32)
+        with pytest.raises(ValueError):        # a cut spans two rows
+            RowSegments.build(recv, 2, "cpu", cuts=np.array([0, 0, 0, 1]))
+        with pytest.raises(ValueError):
+            RowSegments.build(recv, 2, "cpu", cuts=np.array([1, 1, 0, 2]))
+        with pytest.raises(ValueError):
+            RowSegments.build(np.zeros(ROW_SEGMENT + 1, np.int32), 1, "cpu",
+                              cuts=np.zeros(ROW_SEGMENT + 1))
+
+    @pytest.mark.parametrize("weighted", [False, True],
+                             ids=["unweighted", "weighted"])
+    def test_subset_equals_full_bitwise(self, weighted):
+        """Contributions +0 off the color: the subset's output equals the
+        full set's to the bit on every row, -0.0 priorities included (both
+        add the row's empty sum, +0, to where(consume, 0, prio))."""
+        snd, recv, n, colors, n_colors = _scatter_graph()
+        full = tops.EdgeSet.build(snd, recv, n, device="cpu")
+        sets = _sender_subsets(snd, recv, n, colors, n_colors)
+        rng = np.random.default_rng(12)
+        w = torch.from_numpy(rng.normal(size=recv.size).astype(np.float32)) \
+            if weighted else None
+        for c, es in enumerate(sets):
+            contrib, prio, consume = _scatter_inputs(rng, n, colors, c)
+            want = tops.scatter_reschedule(contrib, prio, consume, full, w)
+            got = tops.scatter_reschedule(
+                contrib, prio, consume, es,
+                None if w is None else w[es.perm])
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            assert not torch.signbit(want[want == 0]).any()
+
+
+def _k2_walk(terms, keep, seg, tiles, n_rows):
+    """K2's order in float32 on the host: the keep pass writes keep + 0 on
+    every row; each tile sums its segments from 0 in edge order, kept as a
+    partial by the first ``n_partial`` tiles and written as keep + sum by
+    the others; rows of several segments write keep + their partials."""
+    sb, sr = seg.seg_beg.numpy(), seg.seg_row.numpy()
+    rs, ri = seg.row_seg.numpy(), seg.row_ids.numpy()
+    out = keep + np.float32(0)
+    partial = np.full(seg.n_segments, np.nan, np.float32)
+    for j, (lo, hi) in enumerate(zip(tiles.tile_beg.numpy(),
+                                     tiles.tile_end.numpy())):
+        for k in range(lo, hi):
+            acc = _ordered(terms[sb[k]:sb[k + 1]])
+            if j < tiles.n_partial:
+                partial[k] = acc
+            else:
+                out[sr[k]] = np.float32(keep[sr[k]] + acc)
+    for i in tiles.multi_rows.numpy():
+        acc = _ordered(partial[rs[i]:rs[i + 1]])
+        out[ri[i]] = np.float32(keep[ri[i]] + acc)
+    return out
+
+
+class TestScatterTiles:
+    @pytest.mark.parametrize("subset", [False, True], ids=["full", "subset"])
+    def test_walk_in_tile_order_equals_plain(self, subset):
+        """K2's order over K1's D = 1 tiles gives the plain version's bits,
+        on the full set and on a sender-color subset, -0.0 priorities
+        included."""
+        snd, recv, n, colors, n_colors = _scatter_graph()
+        es = (_sender_subsets(snd, recv, n, colors, n_colors)[1] if subset
+              else tops.EdgeSet.build(snd, recv, n, device="cpu"))
+        rng = np.random.default_rng(13)
+        contrib, prio, consume = _scatter_inputs(rng, n, colors, 1)
+        w = torch.from_numpy(rng.normal(size=es.n_edges).astype(np.float32))
+        want = tops.scatter_reschedule(contrib, prio, consume, es, w)
+        terms = (w * contrib[es.senders[:es.n_edges].long()]).numpy()
+        keep = torch.where(consume, torch.zeros_like(prio), prio).numpy()
+        got = _k2_walk(terms, keep, es.segments, es.segments.tiles, n)
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.numpy().view(np.int32))
+
+
+K3_WIDTHS = [1, 2, 5, 8, 64]
+
+
+def _k3_chunks(tb, te, e0, e1, chunk):
+    """The edges K3's thread for segment [e0, e1) adds, chunk by chunk, in
+    a tile spanning [tb, te) staged ``chunk`` edges at a time."""
+    out = []
+    for ea in range(tb, te, chunk):
+        eb = min(ea + chunk, te)
+        out.extend(range(max(e0, ea), min(e1, eb)))
+    return out
+
+
+class TestSegSumTiles:
+    """K3's tile tables (``segsum.tile_shape``) and its order of adds."""
+
+    @pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+    @pytest.mark.parametrize("d", K3_WIDTHS)
+    @pytest.mark.parametrize("case", TILE_CASES, ids=[c[0] for c in
+                                                      TILE_CASES])
+    def test_every_pair_once_and_fits(self, case, d, itemsize):
+        """Each (segment, column) pair is one thread's of one tile; a tile's
+        pairs fit the block; its stage fits 48 KB of shared memory; a
+        packed tile is read in one chunk; each thread adds exactly its
+        segment's edges, in order."""
+        _, recv, n = case
+        seg = RowSegments.build(recv, n, "cpu")
+        shape, stage = tsegk.tile_shape(d, itemsize)
+        t = seg.tiles_for(shape)
+        assert seg.tiles_for(shape) is t
+        sb = seg.seg_beg.numpy().astype(np.int64)
+        beg, end = t.tile_beg.numpy(), t.tile_end.numpy()
+        owner = np.zeros((seg.n_segments, d), np.int64)
+        for lo, hi in zip(beg, end):
+            assert (hi - lo) * d <= TILE_SEGMENTS
+            owner[lo:hi] += 1
+        assert (owner == 1).all()
+        assert t.tile_segs * d <= TILE_SEGMENTS
+        chunk = min(stage, t.tile_cap)
+        assert (chunk * d + 16 // itemsize) * itemsize <= 48 * 1024
+        span = sb[end] - sb[beg]
+        packed = np.arange(beg.size) >= t.n_partial
+        packed &= (end - beg > 1) | (np.diff(sb)[beg] <= shape.short)
+        assert (span[packed] <= stage).all()
+        for lo, hi in zip(beg, end):
+            for k in range(lo, hi):
+                assert _k3_chunks(sb[lo], sb[hi], sb[k], sb[k + 1],
+                                  max(chunk, 1)) == list(range(sb[k],
+                                                               sb[k + 1]))
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("d", [2, 5])
+    @pytest.mark.parametrize("case", ["pareto", "split-3", "threshold"])
+    def test_walk_in_tile_order_equals_plain(self, case, d, dtype):
+        """K3's order over its tiles gives ``segmented_row_sum``'s bits:
+        each pair's sum from 0 in edge order, 0 + sum for a one-segment
+        row, a row's partials in segment order for the others."""
+        _, recv, n = next(c for c in TILE_CASES if c[0] == case)
+        seg = RowSegments.build(recv, n, "cpu")
+        t = seg.tiles_for(tsegk.tile_shape(d, np.dtype(dtype).itemsize)[0])
+        msgs = np.random.default_rng(d).normal(size=(recv.size, d)) \
+            .astype(dtype)
+        sb, sr = seg.seg_beg.numpy(), seg.seg_row.numpy()
+        rs, ri = seg.row_seg.numpy(), seg.row_ids.numpy()
+        out = np.zeros((n, d), dtype)
+        partial = np.full((seg.n_segments, d), np.nan, dtype)
+        for j, (lo, hi) in enumerate(zip(t.tile_beg.numpy(),
+                                         t.tile_end.numpy())):
+            for k in range(lo, hi):
+                for c in range(d):
+                    acc = _ordered(msgs[sb[k]:sb[k + 1], c])
+                    if j < t.n_partial:
+                        partial[k, c] = acc
+                    else:
+                        out[sr[k], c] = dtype(0) + acc
+        for i in t.multi_rows.numpy():
+            for c in range(d):
+                out[ri[i], c] = _ordered(partial[rs[i]:rs[i + 1], c])
+        want = segmented_row_sum(torch.from_numpy(msgs),
+                                 torch.from_numpy(recv), n, seg).numpy()
+        np.testing.assert_array_equal(out, want)
+        assert np.array_equal(np.signbit(out), np.signbit(want))
+
+
 @pytest.mark.cuda
 class TestOnCard:
     """The hand-written kernels against their plain versions on the card
@@ -509,6 +739,48 @@ class TestOnCard:
                                         segments=es.segments)]
         for k, p in zip(out["cuda"], out["cpu"]):
             assert torch.equal(k.cpu(), p)
+
+    def test_scatter_subsets_equal_full(self):
+        """K2 over each sender-color subset equals K2 over the full set and
+        the plain version on the host, to the bit."""
+        snd, recv, n, colors, n_colors = _scatter_graph()
+        full = tops.EdgeSet.build(snd, recv, n, device="cuda")
+        sets = _sender_subsets(snd, recv, n, colors, n_colors, "cuda")
+        host = _sender_subsets(snd, recv, n, colors, n_colors)
+        rng = np.random.default_rng(14)
+        w = torch.from_numpy(rng.normal(size=recv.size).astype(np.float32))
+        for c, (es, hs) in enumerate(zip(sets, host)):
+            args = _scatter_inputs(rng, n, colors, c)
+            for wt in (None, w):
+                cw = None if wt is None else wt.cuda()
+                dev = [a.cuda() for a in args]
+                k_full = tops.scatter_reschedule(*dev, full, cw)
+                k_sub = tops.scatter_reschedule(
+                    *dev, es, None if cw is None else cw[es.perm])
+                plain = tops.scatter_reschedule(
+                    *args, hs, None if wt is None else wt[hs.perm])
+                for k in (k_full, k_sub):
+                    assert torch.equal(k.cpu().view(torch.int32),
+                                       plain.view(torch.int32))
+
+    @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("d", [1, 2, 5, 8, 16, 64, 300])
+    def test_segsum_widths_equal_plain(self, d, dtype, offset):
+        """K3 at every width (its tiles up to 256 columns, one warp a
+        segment past that), in f32 and f64, on messages that start 16-byte
+        aligned and one row later: equal to the plain version on the host
+        to the bit."""
+        for name in ("pareto", "hub", "split-3"):
+            _, recv, n = next(c for c in TILE_CASES if c[0] == name)
+            rng = np.random.default_rng(d)
+            msgs = torch.from_numpy(rng.normal(size=(recv.size + offset, d))
+                                    ).to(dtype)
+            seg = RowSegments.build(recv, n, "cuda")
+            got = tsegk.segment_sum_sorted_cuda(msgs.cuda()[offset:], seg)
+            want = tseg.segment_sum_sorted(msgs[offset:],
+                                           torch.from_numpy(recv), n)
+            assert torch.equal(got.cpu(), want), name
 
     def test_wrappers_reject_short_edge_arrays(self):
         from repro_torch.kernels.gas.gas import gas_gather_combine_cuda
