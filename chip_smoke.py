@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repository root
 
 Builds the five hand-written CUDA kernels from ``src/repro_torch/csrc``
-and then runs five phases; any failure exits nonzero without the result
+and then runs six phases; any failure exits nonzero without the result
 line:
 
 1. Kernel parity and timing.  Each kernel (K1 gather⊕combine, K2
@@ -46,8 +46,28 @@ line:
    tokens (held in f32 at 1 layer, logged at 2 layers in f32 and at 30 in
    bf16: see DECODE_LAYERS).
 
-It prints the card's name and power limit, one JSON line of per-kernel
-numbers, and as its last line ``{"ok": true, "device": {...}}``.
+6. The distributed engines, S machines on the card over the in-process
+   exchange.  Netflix ALS (480,189 users, 17,770 movies, 100,480,507
+   ratings drawn, d 20, hash placement, users 0 / movies 1) through
+   ``DistributedEngine`` at S = 8 for 5 sweeps: K1 at D 400 and D 20 and
+   K2 on the stacked set, each held to its plain version (K2 on the whole
+   set, K1 on sampled rows: its [E, D] plain version does not fit) and
+   timed; the factors held within 1e-5 of ``ChromaticEngine`` with equal
+   counts after sweeps 1 and 3; RMSE before and after.  NER CoEM (K 204,
+   depth cut to 1.8 M + 0.2 M vertices and 20 M co-occurrences) for 5
+   sweeps, K1 at D 204.  ``DistributedLockingEngine`` (S = 8, p = 1024) on
+   PageRank over a 6-connected 58 x 58 x 60 grid (n 201,840) against
+   ``DynamicEngine``'s fixed point, with no two adjacent winners in any
+   step.  Then the dist engines at S = 4 on the
+   card and on the CPU (the child): PageRank equal to the bit, LBP (f64,
+   BFS placement, the dense path through K3), ALS and CoEM within 1e-5,
+   every counter equal.
+
+``--only models`` runs phase 1's K4/K5 cases and phases 4-5, ``--only
+dist`` phase 6 (``--netflix-ratings`` cuts its ALS depth for such a run);
+a partial run prints no result line.  It prints the card's name and power
+limit, one JSON line of per-kernel numbers (K1's and K2's dist shapes under
+``other_shapes``), and as its last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -268,7 +288,9 @@ class KernelRecord:
             if isinstance(v, float)))
 
     def json(self):
-        t = self.times
+        t = self.times or dict.fromkeys(
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "shape"))
         return {
             "name": self.name, "route": "cuda", "source": self.source,
             "replaces": self.replaces, "launches": self.launches,
@@ -827,15 +849,21 @@ def run_case(eng, graph, leaf, max_steps):
     return vals, meta, time.perf_counter() - t0, rows
 
 
-def cpu_side(path: str) -> None:
-    """Child process: the CPU half of the parity phase (plain versions)."""
+def cpu_side(path: str, local: bool = True) -> None:
+    """Child process: the CPU half of the parity phases (plain versions):
+    the local engines' cases (``local``) and the dist engines' cases."""
     sys.path.insert(0, str(ROOT / "src"))
     torch.set_num_threads(CPU_THREADS)
     out = {}
-    for i, (_, eng, graph, leaf, steps, _) in enumerate(parity_cases("cpu")):
+    for i, (_, eng, graph, leaf, steps, _) in enumerate(
+            parity_cases("cpu") if local else []):
         vals, meta, secs, _ = run_case(eng, graph, leaf, steps)
         out[f"vals{i}"], out[f"meta{i}"] = vals, meta
         out[f"secs{i}"] = np.array(secs)
+    for i, (_, eng, leaf, steps, _) in enumerate(dist_parity_cases("cpu")):
+        vals, prio, meta, secs = run_dist_case(eng, leaf, steps)
+        out[f"dvals{i}"], out[f"dprio{i}"] = vals, prio
+        out[f"dmeta{i}"], out[f"dsecs{i}"] = meta, np.array(secs)
     np.savez(path, **out)
 
 
@@ -890,7 +918,8 @@ def engine_parity_card(recs):
     return [(name, held) for name, *_rest, held in cases], results
 
 
-def engine_parity_check(cases, results, child, cpu_path):
+def cpu_results(child, cpu_path):
+    """Waits for the CPU half of the parity phases; its results or None."""
     t0 = time.perf_counter()
     child.join(CHILD_TIMEOUT_S)
     if child.is_alive():
@@ -898,9 +927,10 @@ def engine_parity_check(cases, results, child, cpu_path):
         child.join()
     log(f"parity: waited {time.perf_counter() - t0:.1f} s for the CPU side")
     expect(child.exitcode == 0, f"CPU side exit code {child.exitcode}")
-    if child.exitcode != 0:
-        return
-    cpu = np.load(cpu_path)
+    return np.load(cpu_path) if child.exitcode == 0 else None
+
+
+def engine_parity_check(cases, results, cpu):
     for i, (name, held) in enumerate(cases):
         vc, mc, tc = results[i]
         vh, mh, th = cpu[f"vals{i}"], cpu[f"meta{i}"], float(cpu[f"secs{i}"])
@@ -1385,11 +1415,585 @@ def lm_phase(k5):
             "serve_generated": made, "decode_rel_err": err}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the distributed engines
+# ---------------------------------------------------------------------------
+
+#: Netflix Prize: 480,189 users, 17,770 movies, 100,480,507 ratings (the
+#: paper's Table 2: 0.5 M vertices, 99 M edges); d = 20 lies in the paper's
+#: d sweep (Sec. 5.1)
+NETFLIX_USERS = 480_189
+NETFLIX_MOVIES = 17_770
+NETFLIX_RATINGS = 100_480_507
+ALS_D = 20
+DIST_TOLERANCE = 1e-3
+DIST_MACHINES = 8
+DIST_SWEEPS = 5
+HOLD_SWEEPS = (1, 3)
+#: NER CoEM, K = 204 types (the paper's 816-byte vertex data); depth cut
+#: from the paper's 2 M vertices and 200 M edges (PERF.md, section 4)
+COEM_NPS, COEM_CONTEXTS, COEM_COOCCURRENCES = 1_800_000, 200_000, 20_000_000
+COEM_TYPES = 204
+#: card-vs-CPU parity of the dist engines, S = 4
+DIST_PARITY_MACHINES = 4
+DIST_PARITY_PR = 20_000
+DIST_PARITY_GRID = 16
+#: the locking engine: PageRank at n ~ 200,000, S = 8, p = 1024, on a
+#: 6-connected 3-D grid.  On the power-law graph of phase 3 the top
+#: vertices of each queue crowd around the hubs and lock each other out
+#: (21 winners a step on average, DynamicEngine 45), so neither converges
+#: in 20,000 steps (PERF.md, section 4)
+LOCK_GRID = (58, 58, 60)
+LOCK_MACHINES = 8
+LOCK_PIPELINE = 1024
+LOCK_MAX_STEPS = 20_000
+#: the plain K1 at D >= 2 materializes [E, D] messages (up to 320 GB at
+#: D 400 on the Netflix set): it is timed edges-chunk by edges-chunk
+PLAIN_CHUNK = 1 << 22
+#: K1 at D >= 2 is held to the bit, against its plain version run on the
+#: host, on sampled rows: the longest rows, every machine's first and last
+#: own rows, and random rows (a row's sum reads only its own edges)
+HOLD_LONGEST, HOLD_RANDOM = 4, 256
+
+
+def dist_parity_cases(device):
+    """(name, engine, exact) of the dist engines' card-vs-CPU parity, at S
+    = 4, built on ``device``.  ``exact``: values and priorities equal to
+    the bit (K1 and K2 equal their plain versions bit for bit), else within
+    1e-5; counters equal either way."""
+    from repro_torch.apps.als import ALSProgram, make_als_graph
+    from repro_torch.apps.coem import CoEMProgram, make_coem_graph
+    from repro_torch.apps.lbp import LoopyBPProgram, make_mrf_graph
+    from repro_torch.apps.pagerank import PageRankProgram, make_pagerank_graph
+    from repro_torch.core.coloring import coloring_for
+    from repro_torch.core.consistency import Consistency
+    from repro_torch.dist import DistributedEngine, InProcessExchange
+    from repro_torch.graphs.generators import grid3d_graph, power_law_graph
+
+    ex = InProcessExchange(DIST_PARITY_MACHINES)
+    n = DIST_PARITY_PR
+    st = power_law_graph(n, avg_degree=LJ_AVG_DEGREE, seed=0, device=device)
+    pr = DistributedEngine(
+        PageRankProgram(alpha=ALPHA, n_vertices=n), make_pagerank_graph(st),
+        ex, colors=coloring_for(st, Consistency.EDGE), tolerance=1e-4 / n,
+        device=device)
+    k = DIST_PARITY_GRID
+    gst = grid3d_graph(k, k, k, 26, device=device)
+    lbp = DistributedEngine(
+        LoopyBPProgram(LBP_STATES, smoothing=LBP_F64[1]),
+        make_mrf_graph(gst, LBP_STATES, seed=0, dtype=torch.float64), ex,
+        colors=coloring_for(gst, Consistency.EDGE), method="bfs",
+        tolerance=LBP_TOLERANCE, device=device)
+    ag, _ = make_als_graph(3000, 600, 60_000, d=ALS_D, seed=1, device=device)
+    als = DistributedEngine(
+        ALSProgram(ALS_D), ag, ex, tolerance=DIST_TOLERANCE,
+        colors=(np.arange(3600) >= 3000).astype(np.int32), device=device)
+    cg, _ = make_coem_graph(6000, 1500, 60_000, n_types=COEM_TYPES, seed=1,
+                            device=device)
+    coem = DistributedEngine(
+        CoEMProgram(COEM_TYPES), cg, ex, tolerance=DIST_TOLERANCE,
+        colors=(np.arange(7500) >= 6000).astype(np.int32), device=device)
+    return [(f"dist pagerank n={n} S={DIST_PARITY_MACHINES} (fused)", pr,
+             "rank", MAIN_MAX_STEPS, True),
+            (f"dist lbp f64 {k}^3 smoothing {LBP_F64[1]} bfs placement "
+             f"(dense)", lbp, "belief", MAIN_MAX_STEPS, False),
+            (f"dist als 3000x600 d={ALS_D} ({DIST_SWEEPS} sweeps)", als,
+             "factor", DIST_SWEEPS, False),
+            (f"dist coem 6000x1500 K={COEM_TYPES} ({DIST_SWEEPS} sweeps)",
+             coem, "p", DIST_SWEEPS, False)]
+
+
+def run_dist_case(eng, leaf, max_steps):
+    """(values [N, ...], prio by row, counters, seconds) of one dist case;
+    counters: steps, updates, rows and bytes shipped (v, e, r)."""
+    t0 = time.perf_counter()
+    state, _ = eng.run(eng.init(), max_steps=max_steps)
+    vals = eng.vertex_data(state)[leaf].cpu().numpy()
+    meta = np.array([int(state.step_index), int(state.update_count.sum()),
+                     eng.ghost_rows_sent(state), eng.ghost_bytes_sent(state),
+                     eng.ghost_edge_rows_sent(state),
+                     eng.ghost_edge_bytes_sent(state),
+                     eng.rank_rows_sent(state)], np.int64)
+    return vals, state.prio.cpu().numpy(), meta, time.perf_counter() - t0
+
+
+DIST_META = ("steps", "updates", "rows_v", "bytes_v", "rows_e", "bytes_e",
+             "rows_r")
+
+
+def dist_parity_card():
+    """The card's half of the dist parity: each case's results; K3's
+    launches on the dense (LBP) case, counted from 0."""
+    from repro_torch.kernels.segsum.segsum import segment_sum_sorted_cuda
+    out = []
+    for name, eng, leaf, steps, _ in dist_parity_cases("cuda"):
+        segment_sum_sorted_cuda.launches = 0
+        out.append(run_dist_case(eng, leaf, steps))
+        if "dense" in name:
+            log(f"{name}: K3 launches {segment_sum_sorted_cuda.launches}")
+            expect(segment_sum_sorted_cuda.launches > 0,
+                   f"{name}: K3 launched on the dist dense path")
+    return out
+
+
+def dist_parity_check(results, cpu):
+    names = [(c[0], c[4]) for c in dist_parity_cases("cpu")]
+    for i, (name, exact) in enumerate(names):
+        vc, pc, mc, tc = results[i]
+        vh, ph, mh = cpu[f"dvals{i}"], cpu[f"dprio{i}"], cpu[f"dmeta{i}"]
+        diff = float(np.abs(vc.astype(np.float64) - vh).max())
+        log(f"parity {name}: " + " ".join(
+            f"{k} {a}/{b}" for k, a, b in zip(DIST_META, mc, mh))
+            + f" time {tc:.2f}/{float(cpu[f'dsecs{i}']):.2f} s (cuda/cpu) "
+            f"max|diff| {diff:.3e}")
+        expect(np.array_equal(mc, mh),
+               f"parity {name}: equal steps, updates and traffic counters")
+        if exact:
+            same = vc.dtype == vh.dtype and np.array_equal(
+                vc.view(np.int32), vh.view(np.int32)) and np.array_equal(
+                pc.view(np.int32), ph.view(np.int32))
+            expect(same, f"parity {name}: values and priorities equal to "
+                   f"the bit")
+        else:
+            expect(diff <= FIXED_POINT_TOL, f"parity {name}: within 1e-5")
+
+
+def sampled_rows(es, rng, machines, n_loc, active_rows):
+    """Rows of ``es`` to hold a kernel on: the longest, each machine's
+    first and last own row, and random rows, all active."""
+    lengths = np.diff(es.row_ptr)
+    rows = np.concatenate([
+        np.argsort(-lengths, kind="stable")[:HOLD_LONGEST],
+        np.arange(machines) * n_loc, np.arange(1, machines + 1) * n_loc - 1,
+        rng.integers(0, es.n_vertices, HOLD_RANDOM)])
+    rows = np.unique(rows)
+    return rows[active_rows[rows] & (lengths[rows] > 0)]
+
+
+def k1_rows_on_host(feat, w, es, rows):
+    """K1's plain version on the host over ``rows`` only (whole rows, so
+    the same segments as the full set): [len(rows), D]."""
+    from repro_torch.kernels.gas.ops import EdgeSet
+    from repro_torch.kernels.gas.ref import gather_combine_ref
+    rp = es.row_ptr
+    lens = rp[rows + 1] - rp[rows]
+    idx = np.repeat(rp[rows] - np.cumsum(np.append(0, lens[:-1])), lens) \
+        + np.arange(lens.sum())
+    snd = es.senders[:es.n_edges].cpu().numpy()[idx]
+    uniq, local = np.unique(snd, return_inverse=True)
+    sub = EdgeSet.build(local.astype(np.int32),
+                        np.repeat(np.arange(rows.size), lens).astype(np.int32),
+                        rows.size, device="cpu")
+    f = feat[torch.from_numpy(uniq).cuda()].cpu()
+    wi = w[torch.from_numpy(idx).cuda()].cpu()
+    w_pad = torch.nn.functional.pad(wi, (0, sub.senders.shape[0] - idx.size))
+    return gather_combine_ref(f, w_pad, sub.senders, sub.receivers,
+                              rows.size)
+
+
+def k1_plain_chunked(feat, w, es, blk):
+    """The plain K1's arithmetic (``index_add_`` of ``w·feat[snd]``, then
+    inactive row blocks zeroed) over ``PLAIN_CHUNK`` edges at a time: its
+    [E, D] messages do not fit the card at D 400."""
+    from repro_torch.kernels.gas.gas import ROW_BLOCK
+    e, n = es.n_edges, es.n_vertices
+    snd = es.senders[:e].long()
+    rcv = es.receivers[:e].long()
+    acc = torch.zeros((n, feat.shape[1]), dtype=torch.float32, device="cuda")
+    for lo in range(0, e, PLAIN_CHUNK):
+        hi = min(lo + PLAIN_CHUNK, e)
+        acc.index_add_(0, rcv[lo:hi], w[lo:hi, None] * feat[snd[lo:hi]])
+    act = torch.repeat_interleave(blk.bool(), ROW_BLOCK)[:n]
+    return torch.where(act[:, None], acc, torch.zeros_like(acc))
+
+
+def active_csr(es, w, blk, n_src):
+    """The CSR matrix ``[n_rows, n_src]`` of the edges whose receiver's row
+    block is active (what K1 sums), for the library call."""
+    from repro_torch.kernels.gas.gas import ROW_BLOCK
+    e, n = es.n_edges, es.n_vertices
+    rcv = es.receivers[:e].long()
+    keep = blk.bool()[rcv // ROW_BLOCK]
+    counts = torch.bincount(rcv[keep], minlength=n)
+    crow = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
+                      torch.cumsum(counts, 0)])
+    return torch.sparse_csr_tensor(crow, es.senders[:e][keep].long(),
+                                   w[keep], (n, n_src),
+                                   check_invariants=False), int(keep.sum())
+
+
+def time_k1_stacked(rec, label, eng, state, leaf, active, rng):
+    """K1 at a dist path's shape: the stacked set of every machine, one
+    leaf's features of the [own; ghost] table and its weights, the blocks
+    of a first sweep's first phase active.  Held to the bit against its
+    plain version on the host on sampled rows; timed beside the plain
+    arithmetic (chunked) and ``torch.sparse.mm``."""
+    from repro_torch.core.update import fused_edge_weight
+    from repro_torch.kernels.gas.gas import gas_gather_combine_cuda
+    from repro_torch.kernels.gas.ops import active_row_blocks
+    es, lay = eng._edges, eng.layout
+    feat = leaf.feature(eng._v_all(state.vown, state.vghost))
+    feat = feat.reshape(feat.shape[0], -1).float().contiguous()
+    d = feat.shape[1]
+    w = fused_edge_weight(leaf, state.edata, eng._t["edge_mask"].shape[0],
+                          eng._t["src_deg_e"])[es.perm].float().contiguous()
+    blk = active_row_blocks(active).to(torch.int32)
+    run_k = lambda: gas_gather_combine_cuda(feat, w, es.senders,
+                                            es.segments, blk)
+    out = run_k()
+    act_rows = torch.repeat_interleave(blk.bool(), 128)[:es.n_vertices]
+    rows = sampled_rows(es, rng, lay.n_machines, lay.n_loc,
+                        act_rows.cpu().numpy())
+    rec.compare(f"{label} (D {d}, {rows.size} sampled rows, "
+                f"{int(np.diff(es.row_ptr)[rows].sum())} edges)",
+                out[torch.from_numpy(rows).cuda()].cpu(),
+                k1_rows_on_host(feat, w, es, rows), bitwise=True)
+    a, e_act = active_csr(es, w, blk, feat.shape[0])
+    run_l = lambda: torch.sparse.mm(a, feat)
+    rec.against_library(out, run_l())
+    run_p = lambda: k1_plain_chunked(feat, w, es, blk)
+    rcv = es.receivers[:es.n_edges].long()
+    on = blk.bool()[rcv // 128]
+    n_snd = int(torch.unique(es.senders[:es.n_edges][on]).numel())
+    n = es.n_vertices
+    gather_bytes = 4 * d * e_act
+    rec.time(run_k, run_p, run_l,
+             8 * e_act + 4 * d * (n_snd + n) + 4 * es.n_row_blocks
+             + row_ptr_bytes(n), 2 * e_act * d,
+             f"{label}: N={n} D={d} E={es.n_edges} (stacked, "
+             f"{lay.n_machines} machines) active edges={e_act} distinct "
+             f"senders={n_snd} segments={es.segments.n_segments}; per-edge "
+             f"gather {gather_bytes / 1e9:.2f} GB", plain_reps=1, main=False)
+    rec.other[-1]["per_edge_gather_bytes"] = gather_bytes
+    return rec.other[-1]
+
+
+def time_k2_stacked(rec, label, eng, active, rng):
+    """K2 at the dist path's shape: the stacked set, weights = edge_mask,
+    contributions on the first phase's rows; equal to the bit to its plain
+    version on the host (the whole set), timed beside ``torch.addmm``."""
+    from repro_torch.kernels.gas.scatter import gas_scatter_reschedule_cuda
+    from repro_torch.kernels.gas.ref import scatter_reschedule_ref
+    es, lay = eng._edges, eng.layout
+    n, n_all = es.n_vertices, lay.n_machines * (lay.n_loc + lay.n_machines
+                                                * lay.budget)
+    w = eng._scatter_w
+    prio = torch.from_numpy((rng.random(n) * 1e-3).astype(np.float32)).cuda()
+    cons = active.contiguous()
+    contrib = torch.from_numpy((rng.random(n_all) * 1e-2).astype(
+        np.float32)).cuda()
+    run_k = lambda: gas_scatter_reschedule_cuda(contrib, prio, cons,
+                                                es.senders, es.segments, w)
+    w_pad = torch.nn.functional.pad(w, (0, es.senders.shape[0] - es.n_edges))
+    run_p = lambda: scatter_reschedule_ref(contrib, prio, cons, w_pad,
+                                           es.senders, es.receivers, n,
+                                           segments=es.segments)
+    host = scatter_reschedule_ref(
+        contrib.cpu(), prio.cpu(), cons.cpu(), w_pad.cpu(), es.senders.cpu(),
+        es.receivers.cpu(), n, segments=on_host(es.segments))
+    rec.compare(f"{label} (stacked set, weights = edge_mask)",
+                run_k().cpu(), host, bitwise=True)
+    del host
+    crow = torch.from_numpy(es.row_ptr.astype(np.int64)).cuda()
+    a = torch.sparse_csr_tensor(crow, es.senders[:es.n_edges].long(), w,
+                                (n, n_all), check_invariants=False)
+    keep = torch.where(cons, torch.zeros_like(prio), prio)[:, None]
+    run_l = lambda: torch.addmm(keep, a, contrib[:, None])
+    rec.against_library(run_k(), run_l()[:, 0])
+    n_snd = int(torch.unique(es.senders[:es.n_edges]).numel())
+    rec.time(run_k, run_p, run_l,
+             8 * es.n_edges + 4 * n_snd + 9 * n + row_ptr_bytes(n),
+             2 * es.n_edges,
+             f"{label}: N={n} E={es.n_edges} (stacked, {lay.n_machines} "
+             f"machines) senders={n_snd} segments={es.segments.n_segments}",
+             plain_reps=1, main=False)
+    return rec.other[-1]
+
+
+def layout_line(label, eng):
+    lay = eng.layout
+    rows = lay.n_machines * (lay.n_loc + lay.n_machines * lay.budget)
+    log(f"{label}: layout S={lay.n_machines} n_loc={lay.n_loc} "
+        f"e_loc={lay.e_loc} B={lay.budget} stacked feature rows={rows} "
+        f"ghost slots={eng.total_ghost_slots()} stacked edges="
+        f"{eng._edges.n_edges} segments={eng._edges.segments.n_segments}")
+    return {"n_loc": lay.n_loc, "e_loc": lay.e_loc, "B": lay.budget,
+            "stacked_rows": rows, "ghost_slots": eng.total_ghost_slots()}
+
+
+def dist_sweeps(label, eng, state, sweeps, keep=(), leaf=None):
+    """``sweeps`` steps of ``eng``, each timed on the host clock ending in
+    ``torch.cuda.synchronize()``; logs ms, updates and ghost rows and bytes
+    a sweep.  Returns (state, per-sweep rows, {sweep: (vertex leaf,
+    update counts)} for the sweeps in ``keep``)."""
+    rows, kept = [], {}
+    upd0 = int(state.update_count.sum())
+    rv0, bv0 = eng.ghost_rows_sent(state), eng.ghost_bytes_sent(state)
+    for i in range(1, sweeps + 1):
+        state, secs = sync_time(lambda: eng.step(state))
+        upd = int(state.update_count.sum())
+        rv, bv = eng.ghost_rows_sent(state), eng.ghost_bytes_sent(state)
+        row = {"sweep": i, "ms": 1e3 * secs, "updates": upd - upd0,
+               "ghost_rows": rv - rv0, "ghost_bytes": bv - bv0}
+        log(f"{label} sweep {i}: {row['ms']:.2f} ms, updates "
+            f"{row['updates']}, ghost rows {row['ghost_rows']}, ghost bytes "
+            f"{row['ghost_bytes']}")
+        rows.append(row)
+        upd0, rv0, bv0 = upd, rv, bv
+        if i in keep:
+            kept[i] = (eng.vertex_data(state)[leaf], eng.update_counts(state))
+    return state, rows, kept
+
+
+def netflix_als(recs, rng, n_ratings):
+    """Netflix ALS through ``DistributedEngine`` at S = 8 on the card: the
+    slice's full-width path; held against ``ChromaticEngine``."""
+    from repro_torch.apps.als import ALSProgram, als_rmse, make_als_graph
+    from repro_torch.core.chromatic import ChromaticEngine
+    from repro_torch.core.coloring import verify_coloring
+    from repro_torch.core.scheduler import sweep_mask
+    from repro_torch.dist import DistributedEngine, InProcessExchange
+    from repro_torch.kernels.gas.gas import gas_gather_combine_cuda as k1c
+    from repro_torch.kernels.gas.scatter import \
+        gas_scatter_reschedule_cuda as k2c
+
+    n_u, n_m = NETFLIX_USERS, NETFLIX_MOVIES
+    (g, _), secs = sync_time(lambda: make_als_graph(
+        n_u, n_m, n_ratings, d=ALS_D, seed=0, device="cuda"))
+    st = g.structure
+    out = {"ratings_drawn": n_ratings, "E": st.n_edges,
+           "generation_s": secs}
+    log(f"als: generation {secs:.1f} s  users={n_u} movies={n_m} ratings "
+        f"drawn={n_ratings}, {st.n_edges // 2} after dedup, E={st.n_edges} "
+        f"directed edges, max in-degree={int(st.in_degree.max())}")
+    colors = (np.arange(st.n_vertices) >= n_u).astype(np.int32)
+    expect(verify_coloring(st, colors, 1),
+           "als: users 0 / movies 1 is a proper coloring")
+    prog = ALSProgram(ALS_D)
+    eng, secs = sync_time(lambda: DistributedEngine(
+        prog, g, InProcessExchange(DIST_MACHINES), colors=colors,
+        tolerance=DIST_TOLERANCE, method="hash", device="cuda"))
+    out["setup_s"] = secs
+    log(f"als: engine set-up {secs:.1f} s (placement, layout, the stacked "
+        f"edge set)  fused={eng.use_fused}")
+    expect(eng.use_fused, "als: the dist engine takes the fused path")
+    out["layout"] = layout_line("als", eng)
+    out["rmse_before"] = (als_rmse(g, True), als_rmse(g, False))
+    state = eng.init()
+    active = torch.logical_and(eng._t["own_mask"], sweep_mask(
+        eng._t["colors_own"], state.prio, DIST_TOLERANCE, 0))
+    leaves = dict(zip(("xxt", "rx"), eng._gas_leaves))
+    k1_rows = [time_k1_stacked(recs[0], f"als {name}", eng, state, leaf,
+                               active, rng) for name, leaf in leaves.items()]
+    k2_row = time_k2_stacked(recs[1], "als", eng, active, rng)
+    del state
+    torch.cuda.empty_cache()
+
+    log_clocks("before the dist ALS sweeps")
+    torch.cuda.reset_peak_memory_stats()
+    k1c.launches = k2c.launches = 0
+    state, sweeps, kept = dist_sweeps("als", eng, eng.init(), DIST_SWEEPS,
+                                      keep=HOLD_SWEEPS, leaf="factor")
+    l1, l2 = k1c.launches, k2c.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"als: launches K1={l1} K2={l2} over {DIST_SWEEPS} sweeps; peak "
+        f"device memory {peak:.2f} GiB")
+    expect(l1 > 0 and l2 > 0, "als: K1 and K2 launched on the dist path")
+    for row in k1_rows:
+        row["launches"] = l1 // len(leaves)
+    k2_row["launches"] = l2
+    factors = eng.vertex_data(state)["factor"]
+    expect(bool(torch.isfinite(factors).all())
+           and factors.shape == (st.n_vertices, ALS_D),
+           "als: factors finite, shape [N, d]")
+    out["rmse_after"] = (als_rmse(g.replace(vertex_data={"factor": factors}),
+                                  True),
+                         als_rmse(g.replace(vertex_data={"factor": factors}),
+                                  False))
+    log(f"als: RMSE train/test before {out['rmse_before'][0]:.4f}/"
+        f"{out['rmse_before'][1]:.4f}, after {DIST_SWEEPS} sweeps "
+        f"{out['rmse_after'][0]:.4f}/{out['rmse_after'][1]:.4f}")
+    expect(out["rmse_after"][0] < out["rmse_before"][0],
+           "als: train RMSE fell")
+    out["profile"] = profile_window("als: one sweep", lambda: eng.step(state),
+                                    "als_profile.txt")
+    out.update(sweeps=sweeps, peak_gib=peak, launches_k1=l1,
+               launches_k2=l2)
+    del eng, state, factors
+    torch.cuda.empty_cache()
+
+    # the hold: ChromaticEngine on the same graph and colors
+    ce, secs = sync_time(lambda: ChromaticEngine(
+        prog, g, colors=colors, tolerance=DIST_TOLERANCE, device="cuda"))
+    log(f"als: ChromaticEngine set-up {secs:.1f} s")
+    cs = ce.init(g)
+    for i in range(1, max(HOLD_SWEEPS) + 1):
+        cs = ce.step(cs)
+        if i in HOLD_SWEEPS:
+            f_d, c_d = kept[i]
+            diff = float((f_d - cs.graph.vertex_data["factor"]).abs().max())
+            same = torch.equal(c_d, cs.update_count)
+            log(f"als hold, sweep {i}: max|factor diff| {diff:.3e}, "
+                f"updates {int(c_d.sum())}/{int(cs.total_updates)} "
+                f"(dist/chromatic)")
+            expect(diff <= FIXED_POINT_TOL,
+                   f"als: dist within 1e-5 of ChromaticEngine after sweep {i}")
+            expect(same, f"als: equal update counts after sweep {i}")
+    del ce, cs, kept, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def ner_coem(recs, rng):
+    """NER CoEM through ``DistributedEngine`` at S = 8, K = 204."""
+    from repro_torch.apps.coem import (CoEMProgram, coem_accuracy,
+                                       make_coem_graph)
+    from repro_torch.core.coloring import verify_coloring
+    from repro_torch.core.scheduler import sweep_mask
+    from repro_torch.dist import DistributedEngine, InProcessExchange
+    from repro_torch.kernels.gas.gas import gas_gather_combine_cuda as k1c
+    from repro_torch.kernels.gas.scatter import \
+        gas_scatter_reschedule_cuda as k2c
+
+    (g, info), secs = sync_time(lambda: make_coem_graph(
+        COEM_NPS, COEM_CONTEXTS, COEM_COOCCURRENCES, n_types=COEM_TYPES,
+        seed=0, device="cuda"))
+    st = g.structure
+    out = {"E": st.n_edges, "generation_s": secs}
+    log(f"coem: generation {secs:.1f} s  noun-phrases={COEM_NPS} contexts="
+        f"{COEM_CONTEXTS} co-occurrences={COEM_COOCCURRENCES}, E="
+        f"{st.n_edges} directed edges, K={COEM_TYPES}")
+    colors = (np.arange(st.n_vertices) >= COEM_NPS).astype(np.int32)
+    expect(verify_coloring(st, colors, 1),
+           "coem: noun-phrases 0 / contexts 1 is a proper coloring")
+    eng, secs = sync_time(lambda: DistributedEngine(
+        CoEMProgram(COEM_TYPES), g, InProcessExchange(DIST_MACHINES),
+        colors=colors, tolerance=DIST_TOLERANCE, method="hash",
+        device="cuda"))
+    out["setup_s"] = secs
+    log(f"coem: engine set-up {secs:.1f} s  fused={eng.use_fused}")
+    expect(eng.use_fused, "coem: the dist engine takes the fused path")
+    out["layout"] = layout_line("coem", eng)
+    out["accuracy_before"] = coem_accuracy(g, info)
+    state = eng.init()
+    active = torch.logical_and(eng._t["own_mask"], sweep_mask(
+        eng._t["colors_own"], state.prio, DIST_TOLERANCE, 0))
+    k1_row = time_k1_stacked(recs[0], "coem p", eng, state,
+                             eng._gas_leaves[0], active, rng)
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k1c.launches = k2c.launches = 0
+    state, sweeps, _ = dist_sweeps("coem", eng, eng.init(), DIST_SWEEPS)
+    l1, l2 = k1c.launches, k2c.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k1_row["launches"] = l1
+    expect(l1 > 0 and l2 > 0, "coem: K1 and K2 launched on the dist path")
+    p = eng.vertex_data(state)["p"]
+    expect(bool(torch.isfinite(p).all())
+           and p.shape == (st.n_vertices, COEM_TYPES),
+           "coem: distributions finite, shape [N, K]")
+    total = p.sum(dim=1)
+    isolated = torch.from_numpy(st.in_degree == 0).cuda()
+    expect(bool(torch.where(isolated, total.abs() == 0,
+                            (total - 1).abs() < 1e-3).all()),
+           f"coem: every distribution sums to 1 (0 on the "
+           f"{int(isolated.sum())} isolated vertices, which gather nothing)")
+    acc = coem_accuracy(g.replace(vertex_data={"p": p,
+                                               "seed": g.vertex_data["seed"]}),
+                        info)
+    log(f"coem: launches K1={l1} K2={l2}; accuracy {out['accuracy_before']:.4f}"
+        f" -> {acc:.4f} after {DIST_SWEEPS} sweeps; peak device memory "
+        f"{peak:.2f} GiB")
+    out.update(sweeps=sweeps, peak_gib=peak, accuracy_after=acc,
+               launches_k1=l1, launches_k2=l2)
+    del eng, state, p, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def locking_card():
+    """``DistributedLockingEngine`` (S = 8, p = 1024) on PageRank over
+    LOCK_GRID on the card: within 1e-5 of ``DynamicEngine``'s fixed point
+    (and within 1e-3 of it in L1 over its L1), and no two winners adjacent
+    in any step (edge consistency)."""
+    from repro_torch.apps.pagerank import PageRankProgram, make_pagerank_graph
+    from repro_torch.core import DynamicEngine
+    from repro_torch.dist import DistributedLockingEngine, InProcessExchange
+    from repro_torch.graphs.generators import grid3d_graph
+
+    st = grid3d_graph(*LOCK_GRID, 6, device="cuda")
+    n = st.n_vertices
+    g = make_pagerank_graph(st)
+    prog = PageRankProgram(alpha=ALPHA, n_vertices=n)
+    tol = 1e-4 / n
+    dyn = DynamicEngine(prog, g, pipeline_length=LOCK_PIPELINE,
+                        tolerance=tol, device="cuda")
+    ds, dsecs = sync_time(lambda: dyn.run_while(dyn.init(g),
+                                                max_steps=LOCK_MAX_STEPS))
+    le = DistributedLockingEngine(prog, g, InProcessExchange(LOCK_MACHINES),
+                                  pipeline_length=LOCK_PIPELINE,
+                                  tolerance=tol, device="cuda")
+    t = st.device_arrays()
+    snd, rcv = t["senders"], t["receivers"]
+    s = le.init()
+    prev = le.update_counts(s)
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    steps = 0
+    while steps < LOCK_MAX_STEPS and not le.converged(s):
+        s = le.step(s)
+        cnt = le.update_counts(s)
+        win = cnt > prev
+        bad += torch.sum(torch.logical_and(win[snd], win[rcv]))
+        prev = cnt
+        steps += 1
+    torch.cuda.synchronize()
+    lsecs = time.perf_counter() - t0
+    ref = ds.graph.vertex_data["rank"]
+    out = le.vertex_data(s)["rank"]
+    diff = float((out - ref).abs().max())
+    rel = float((out - ref).abs().sum() / ref.abs().sum())
+    log(f"locking: PageRank on a {LOCK_GRID} 6-connected grid, n={n}, "
+        f"E={st.n_edges}, tolerance {tol:.3g}")
+    log(f"locking: DynamicEngine p={LOCK_PIPELINE} {int(ds.step_index)} steps"
+        f" {dsecs:.2f} s, {int(ds.total_updates)} updates; locking S="
+        f"{LOCK_MACHINES} p={LOCK_PIPELINE} {steps} steps {lsecs:.2f} s, "
+        f"{int(s.update_count.sum())} updates, rank rows "
+        f"{le.rank_rows_sent(s)}, ghost rows {le.ghost_rows_sent(s)}; "
+        f"max|diff| {diff:.3e}, L1 diff / L1 {rel:.3e}")
+    expect(bool(dyn.scheduler.done(ds.sched, ds.prio)) and le.converged(s),
+           "locking: both engines converged")
+    expect(diff <= FIXED_POINT_TOL and rel <= ORACLE_L1_TOL,
+           "locking: within 1e-5 of DynamicEngine's fixed point (L1 "
+           "difference within 1e-3 of its L1)")
+    expect(int(bad) == 0, f"locking: no two adjacent winners in any of "
+           f"{steps} steps ({int(bad)} adjacent pairs)")
+    return {"steps": steps, "seconds": lsecs, "max_diff": diff,
+            "l1_rel": rel, "dynamic_steps": int(ds.step_index)}
+
+
+def dist_phase(recs, rng, n_ratings):
+    """Phase 6: Netflix ALS and NER CoEM through DistributedEngine at S = 8,
+    the locking engine, and the card's half of the dist parity."""
+    out = {"als": netflix_als(recs, rng, n_ratings)}
+    torch.cuda.empty_cache()
+    out["coem"] = ner_coem(recs, rng)
+    torch.cuda.empty_cache()
+    out["locking"] = locking_card()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("--only", choices=("models",),
-                    help="run only phase 1's K4/K5 cases and phases 4-5 "
-                    "(a partial run: it prints no result line)")
+    ap.add_argument("--only", choices=("models", "dist"),
+                    help="models: run only phase 1's K4/K5 cases and phases "
+                    "4-5; dist: run only phase 6 (a partial run prints no "
+                    "result line)")
+    ap.add_argument("--netflix-ratings", type=int, default=NETFLIX_RATINGS,
+                    help="ratings drawn for phase 6's ALS (a partial run's "
+                    "depth; the full run keeps the default)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1402,13 +2006,17 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
+    partial = args.only is not None or args.netflix_ratings != NETFLIX_RATINGS
+    local = args.only is None      # phases 1-3 (the local engines)
+    models = args.only in (None, "models")
+    dist = args.only in (None, "dist")
     t_all = time.perf_counter()
     OUT_DIR.mkdir(exist_ok=True)
     WORK_DIR.mkdir(parents=True, exist_ok=True)
     cpu_path = str(WORK_DIR / "cpu_parity.npz")
     child = multiprocessing.get_context("spawn").Process(
-        target=cpu_side, args=(cpu_path,))
-    if not args.only:
+        target=cpu_side, args=(cpu_path, local))
+    if dist:
         child.start()
     summary = {}
     try:
@@ -1445,24 +2053,34 @@ def main() -> int:
                          "src/repro/kernels/flash_attention/"
                          "flash_attention.py:85", row_scale=True),
         ]
-        if not args.only:
+        if local:
             kernel_parity_cases(recs, rng)
-        model_kernel_cases(recs[3], recs[4], rng)
+        if models:
+            model_kernel_cases(recs[3], recs[4], rng)
         log(f"elapsed {time.perf_counter() - t_all:.1f} s")
-        if not args.only:
+        if local:
             summary = main_path(recs, rng)
             log(f"elapsed {time.perf_counter() - t_all:.1f} s")
             cases, results = engine_parity_card(recs)
             torch.cuda.empty_cache()
             log(f"elapsed {time.perf_counter() - t_all:.1f} s")
-        summary["dlrm"] = dlrm_phase(recs[3])
-        torch.cuda.empty_cache()
-        log(f"elapsed {time.perf_counter() - t_all:.1f} s")
-        summary["lm"] = lm_phase(recs[4])
-        torch.cuda.empty_cache()
-        log(f"elapsed {time.perf_counter() - t_all:.1f} s")
-        if not args.only:
-            engine_parity_check(cases, results, child, cpu_path)
+        if models:
+            summary["dlrm"] = dlrm_phase(recs[3])
+            torch.cuda.empty_cache()
+            log(f"elapsed {time.perf_counter() - t_all:.1f} s")
+            summary["lm"] = lm_phase(recs[4])
+            torch.cuda.empty_cache()
+            log(f"elapsed {time.perf_counter() - t_all:.1f} s")
+        if dist:
+            summary["dist"] = dist_phase(recs, rng, args.netflix_ratings)
+            log(f"elapsed {time.perf_counter() - t_all:.1f} s")
+            dist_results = dist_parity_card()
+            log(f"elapsed {time.perf_counter() - t_all:.1f} s")
+            cpu = cpu_results(child, cpu_path)
+            if cpu is not None:
+                if local:
+                    engine_parity_check(cases, results, cpu)
+                dist_parity_check(dist_results, cpu)
     finally:
         if child.is_alive():
             child.terminate()
@@ -1474,9 +2092,11 @@ def main() -> int:
     if failures:
         log(f"{len(failures)} check(s) failed: {failures}")
         return 1
-    if args.only:
-        log("kernels: " + json.dumps([r.json() for r in recs[3:]]))
-        log(f"partial run (--only {args.only}): no result line")
+    if partial:
+        log("kernels: " + json.dumps([r.json() for r in recs
+                                      if r.times or r.other]))
+        log(f"partial run (--only {args.only}, {args.netflix_ratings} "
+            f"ratings): no result line")
         return 0
     print(smi)
     print(json.dumps({"kernels": [r.json() for r in recs]}))

@@ -313,7 +313,7 @@ class Engine:
             state = self.step(state)
             pending.append(self._row(state))
             extras.append(dict(trace_fn(state)) if trace_fn else {})
-        return state, _drain(pending, extras)
+        return state, drain_rows(pending, extras, zero=_ZERO_TRAFFIC)
 
     def run_while(self, state: EngineState,
                   max_steps: int = 100) -> EngineState:
@@ -329,19 +329,22 @@ _ZERO_TRAFFIC = ("wire_backlog", "traffic_rows_v", "traffic_bytes_v",
                  "traffic_bytes_r")
 
 
-def _drain(pending: List[Dict[str, torch.Tensor]],
-           extras: List[Dict[str, Any]]) -> List[Dict[str, float]]:
-    """Device-scalar rows → host rows, in one device→host copy."""
+def drain_rows(pending: List[Dict[str, torch.Tensor]],
+               extras: Optional[List[Dict[str, Any]]] = None,
+               zero: Sequence[str] = ()) -> List[Dict[str, float]]:
+    """Device-scalar rows → host rows, in one device→host copy; ``zero``
+    names keys set to 0 in every row (structurally zero here), ``extras``
+    are merged on top."""
     if not pending:
         return []
     keys = list(pending[0])
     host = torch.stack([torch.stack([r[k].to(torch.float64) for k in keys])
                         for r in pending]).cpu().tolist()
     rows = []
-    for vals, extra in zip(host, extras):
+    for vals, extra in zip(host, extras or [{}] * len(host)):
         row = {k: (v if k == "residual_max" else int(v))
                for k, v in zip(keys, vals)}
-        row.update({k: 0 for k in _ZERO_TRAFFIC})
+        row.update({k: 0 for k in zero})
         row.update({k: (v.item() if isinstance(v, torch.Tensor) else v)
                     for k, v in extra.items()})
         rows.append(row)

@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.keysort import reverse_positions, stable_argsort
 from repro_torch.core.tree import tree_map
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -88,28 +89,19 @@ class GraphStructure:
         if senders.size and max(senders.max(), receivers.max()) >= n_vertices:
             raise ValueError("vertex id out of range")
 
+        # receiver-major, sender-minor keys: CSR rows are contiguous and
+        # deterministic.  The sort and the reverse-edge search run on the
+        # structure's device (core/keysort.py; the same arrays as numpy's).
+        key_in = receivers.astype(np.int64) * n_vertices + senders
         if sort:
-            # receiver-major, sender-minor: CSR rows are contiguous and
-            # deterministic
-            perm = np.lexsort((senders, receivers)).astype(np.int32)
+            perm = stable_argsort(key_in, device).astype(np.int32)
         else:
             perm = np.arange(senders.size, dtype=np.int32)
         s, r = senders[perm], receivers[perm]
 
         # Reverse-edge lookup: position of (r, s) among receiver-sorted keys.
-        key = r.astype(np.int64) * n_vertices + s.astype(np.int64)
-        rev_key = s.astype(np.int64) * n_vertices + r.astype(np.int64)
-        if key.size:
-            # sorted needles let searchsorted walk forward instead of
-            # jumping at random through E keys (minutes at E ~ 6e7)
-            order = np.argsort(rev_key, kind="stable")
-            pos = np.empty(key.size, np.int64)
-            pos[order] = np.searchsorted(key, rev_key[order])
-            pos = np.clip(pos, 0, key.size - 1)
-            reverse_perm = np.where(key[pos] == rev_key, pos,
-                                    -1).astype(np.int32)
-        else:
-            reverse_perm = np.zeros(0, dtype=np.int32)
+        reverse_perm = reverse_positions(
+            key_in[perm], s.astype(np.int64) * n_vertices + r, device)
 
         in_degree = np.bincount(r, minlength=n_vertices).astype(np.int32)
         out_degree = np.bincount(s, minlength=n_vertices).astype(np.int32)

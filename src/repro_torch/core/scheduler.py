@@ -80,34 +80,35 @@ def pipeline_select(prio: torch.Tensor, k: int, tolerance: float
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k scheduled vertices — the pipeline of in-flight lock requests.
 
-    Returns ``(selected [N] bool, top_idx [k])``; ties break toward lower
+    Returns ``(selected [..., N] bool, top_idx [..., k])`` along the last
+    dim (one queue a row of a ``[S, n_loc]`` batch: the distributed
+    locking engine's per-machine pipelines); ties break toward lower
     vertex id, the paper's canonical ordering.
     """
-    n = prio.shape[0]
     in_t = scheduled_mask(prio, tolerance)
     masked = torch.where(in_t, prio, torch.full_like(prio, -torch.inf))
     top_idx = top_k_indices(masked, k)
-    in_top = torch.zeros(n, dtype=torch.bool, device=prio.device)
-    in_top[top_idx] = True
+    in_top = torch.zeros_like(in_t).scatter_(-1, top_idx, True)
     return torch.logical_and(in_top, in_t), top_idx
 
 
 def pipeline_ranks(prio: torch.Tensor, top_idx: torch.Tensor,
                    tolerance: float, *, stride: int = 1,
-                   offset: int = 0) -> torch.Tensor:
+                   offset=0) -> torch.Tensor:
     """Arbitration rank per vertex: position in the top-k list, +inf for
-    unselected.  ``stride``/``offset`` interleave ranks across disjoint
-    selectors.  Ranks are f32 so +inf is the segment-min identity; they are
-    exact only below 2**24 (``check_rank_range``)."""
-    n = prio.shape[0]
-    k = top_idx.shape[0]
+    unselected, along the last dim.  ``stride``/``offset`` interleave ranks
+    across disjoint selectors (``offset`` may be a tensor broadcast over a
+    batch, e.g. ``[S, 1]`` machine ids).  Ranks are f32 so +inf is the
+    segment-min identity; they are exact only below 2**24
+    (``check_rank_range``)."""
+    k = top_idx.shape[-1]
     ranks = torch.arange(k, dtype=torch.float32,
                          device=prio.device) * stride + offset
-    rank = torch.full((n,), torch.inf, dtype=torch.float32,
+    in_top = scheduled_mask(prio, tolerance).gather(-1, top_idx)
+    vals = torch.where(in_top, ranks, torch.full_like(ranks, torch.inf))
+    rank = torch.full(prio.shape, torch.inf, dtype=torch.float32,
                       device=prio.device)
-    rank[top_idx] = torch.where(scheduled_mask(prio, tolerance)[top_idx],
-                                ranks, torch.full_like(ranks, torch.inf))
-    return rank
+    return rank.scatter_(-1, top_idx, vals.expand(top_idx.shape))
 
 
 def check_rank_range(max_rank: int, what: str) -> None:

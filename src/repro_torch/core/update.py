@@ -152,6 +152,19 @@ class EdgeCtx:
         return self._t["in_degree"][self._t["receivers"]]
 
 
+class FixedEdgeCtx(NamedTuple):
+    """An ``EdgeCtx`` whose views are given, not gathered from a graph:
+    the distributed engines' per-machine edge rows and the sequential
+    engine's one scope.  Same fields as ``EdgeCtx``."""
+
+    edata: Pytree
+    rev_edata: Pytree
+    src: Pytree
+    dst: Pytree
+    src_deg: torch.Tensor
+    dst_deg: torch.Tensor
+
+
 class ApplyOut(NamedTuple):
     vertex_data: Pytree     # new data for the central vertex
     residual: torch.Tensor  # [N] — drives adaptive scheduling (|ΔR| etc.)

@@ -2,16 +2,21 @@
 
   power_law_graph : natural web graphs ("power-law degree distributions")
   grid3d_graph    : the paper's 26-connected synthetic MRF (Sec. 4.2.2)
+  bipartite_graph : Netflix / NER bipartite graphs (Secs. 5.1, 5.3)
 
 They make the same numpy RNG calls in the same order as the JAX package's
-generators, so the same seed gives the same arrays in both packages.
+generators, so the same seed gives the same arrays in both packages; their
+deduplicating sorts run on the requested device (``core/keysort.py``).
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
 from repro_torch.core.graph import GraphStructure
-from repro_torch.device import DeviceLike
+from repro_torch.core.keysort import unique_first
+from repro_torch.device import DeviceLike, resolve_device
 
 
 def power_law_graph(
@@ -31,7 +36,7 @@ def power_law_graph(
     # dedupe on the canonical undirected pair (else symmetrizing (u,v) and
     # (v,u) draws would create duplicate directed edges — a multigraph)
     key = (np.minimum(u, v).astype(np.int64) * n + np.maximum(u, v))
-    _, idx = np.unique(key, return_index=True)
+    _, idx = unique_first(key, resolve_device(device))
     u, v = u[idx], v[idx]
     if symmetric:
         st, _ = GraphStructure.undirected(u, v, n, device=device)
@@ -83,3 +88,27 @@ def grid3d_graph(nx: int, ny: int, nz: int, connectivity: int = 26,
     v = np.concatenate(vs)
     st, _ = GraphStructure.undirected(u, v, nx * ny * nz, device=device)
     return st
+
+
+def bipartite_graph(
+    n_left: int, n_right: int, n_ratings: int, seed: int = 0,
+    right_popularity_alpha: float = 1.8, *, device: DeviceLike = "cuda",
+) -> Tuple[GraphStructure, np.ndarray]:
+    """Netflix/NER-style bipartite graph (left = users/noun-phrases, right =
+    movies/contexts; right endpoints power-law popular — "Harry Potter
+    connects to a very large number of users").
+
+    Vertices [0, n_left) are left, [n_left, n_left+n_right) right.
+    Returns (symmetric structure, pair perm) — edge data built over the
+    (u→m ; m→u) concatenated order should be permuted with the perm.
+    """
+    rng = np.random.default_rng(seed)
+    wr = rng.pareto(right_popularity_alpha, size=n_right) + 1.0
+    pr = wr / wr.sum()
+    users = rng.integers(0, n_left, size=n_ratings)
+    movies = rng.choice(n_right, size=n_ratings, p=pr)
+    key = users.astype(np.int64) * n_right + movies
+    _, idx = unique_first(key, resolve_device(device))
+    users, movies = users[idx], movies[idx]
+    return GraphStructure.undirected(users, movies + n_left,
+                                     n_left + n_right, device=device)

@@ -26,19 +26,21 @@ EDGE_BLOCK = 512
 
 
 def gas_gather_combine_cuda(
-    feat: torch.Tensor,          # [N, D] f32 source features
+    feat: torch.Tensor,          # [N_src, D] f32 source features
     weights: torch.Tensor,       # [>= E] f32 per-edge scalars
     senders: torch.Tensor,       # [>= E] i32, receiver-sorted edge order
     segments: RowSegments,       # the rows' segment tables, N = n_rows
     block_active: Optional[torch.Tensor] = None,  # [n_row_blocks] i32
 ) -> torch.Tensor:
-    """Launches K1 → ``[n_rows, D]`` f32.  Rows of inactive row blocks, and
-    rows that own no edge of ``segments``, come back as exact zeros.  At
-    D = 1 it reads ``segments.tiles`` (built on the first such launch).
-    Counts each launch in ``.launches``."""
+    """Launches K1 → ``[n_rows, D]`` f32.  ``feat`` may hold more rows than
+    the output (the distributed engines' senders index a stacked
+    ``[own; ghost]`` table).  Rows of inactive row blocks, and rows that own
+    no edge of ``segments``, come back as exact zeros.  At D = 1 it reads
+    ``segments.tiles`` (built on the first such launch).  Counts each launch
+    in ``.launches``."""
     dev = feat.device
     n_rows = segments.n_rows
-    build.require("feat", feat, torch.float32, dev, (n_rows, None))
+    build.require("feat", feat, torch.float32, dev, (None, None))
     d = feat.shape[1]
     build.require("weights", weights, torch.float32, dev, (None,))
     build.require("senders", senders, torch.int32, dev, (None,))
