@@ -16,9 +16,14 @@ line:
    order; K4 and K5 within a max relative error of 2e-5 in float32, and in
    bfloat16 one bfloat16 ulp of the largest output, 2^-7 relative), and
    timed beside its plain version, one PyTorch library call for the same
-   function, and its bound.  K2 at the full edge set and at the largest
-   sender-color subset of phase 2 (also equal to the bit to the full
-   set's output); K3 at D 1-64 in f32 and f64 beside the LBP shape.  K4
+   function, and its bound.  K1's cases run at D 1-400 (its D >= 2 column
+   kernel at D 2, 3, 5, 16, 20, 128, 204, 300 and 400, a hub of rows of
+   2+ segments at D 400, a feature table one row into a larger one at D
+   5, not 16-byte aligned, and D 20 and 204 on 16 M edges, more column
+   items than the card holds warps) under four masks.  K2 at the full edge set
+   and at the largest sender-color subset of phase 2 (also equal to the
+   bit to the full set's output); K3 at D 1-64 in f32 and f64 beside the
+   LBP shape.  K4
    and K5 are timed at their paths' shapes inside phases 4 and 5, where
    the model's tensors live.
 2. The main path: PageRank on ChromaticEngine (fused) over a synthetic
@@ -49,19 +54,21 @@ line:
 6. The distributed engines, S machines on the card over the in-process
    exchange.  Netflix ALS (480,189 users, 17,770 movies, 100,480,507
    ratings drawn, d 20, hash placement, users 0 / movies 1) through
-   ``DistributedEngine`` at S = 8 for 5 sweeps: K1 at D 400 and D 20 and
-   K2 on the stacked set, each held to its plain version (K2 on the whole
-   set, K1 on sampled rows: its [E, D] plain version does not fit) and
-   timed; the factors held within 1e-5 of ``ChromaticEngine`` with equal
-   counts after sweeps 1 and 3; RMSE before and after.  NER CoEM (K 204,
-   depth cut to 1.8 M + 0.2 M vertices and 20 M co-occurrences) for 5
-   sweeps, K1 at D 204.  ``DistributedLockingEngine`` (S = 8, p = 1024) on
-   PageRank over a 6-connected 58 x 58 x 60 grid (n 201,840) against
-   ``DynamicEngine``'s fixed point, with no two adjacent winners in any
-   step.  Then the dist engines at S = 4 on the
-   card and on the CPU (the child): PageRank equal to the bit, LBP (f64,
-   BFS placement, the dense path through K3), ALS and CoEM within 1e-5,
-   every counter equal.
+   ``DistributedEngine`` at S = 8 for 5 sweeps: K1 at D 400 and D 20 under
+   each phase's mask and K2 on the stacked set, each held to its plain
+   version (K2 on the whole set, K1 on sampled rows: its [E, D] plain
+   version does not fit) and timed, K1 with its effective gather bandwidth
+   and, at D 400, timed again at forced slice widths (each equal to the
+   bit to the chosen widths' output); the factors held within 1e-5 of
+   ``ChromaticEngine`` with equal counts after sweeps 1 and 3; RMSE before
+   and after.  NER CoEM (K 204, depth cut to 1.8 M + 0.2 M vertices and
+   20 M co-occurrences) for 5 sweeps, K1 at D 204 (with its slice sweep).
+   ``DistributedLockingEngine`` (S = 8, p = 1024) on PageRank over a
+   6-connected 58 x 58 x 60 grid (n 201,840) against ``DynamicEngine``'s
+   fixed point, with no two adjacent winners in any step.  Then the dist
+   engines at S = 4 on the card and on the CPU (the child): PageRank equal
+   to the bit, LBP (f64, BFS placement, the dense path through K3), ALS
+   and CoEM within 1e-5, every counter equal.
 
 ``--only models`` runs phase 1's K4/K5 cases and phases 4-5, ``--only
 dist`` phase 6 (``--netflix-ratings`` cuts its ALS depth for such a run);
@@ -331,9 +338,12 @@ def tile_receivers():
 
 
 def edge_cases(rng):
-    """(name, senders, receivers, n, d): the cases of the JAX package's
-    kernel tests, a hub longer than one row segment, K1's tile layouts,
-    and the widths of the main paths."""
+    """(name, senders, receivers, n, d, offset): the cases of the JAX
+    package's kernel tests, a hub longer than one row segment (also at D
+    400, rows of 2+ segments through K1's column items), K1's tile layouts,
+    the widths of the main paths, and a K1 feature table that starts
+    ``offset`` rows into a larger one (at D 5 not 16-byte aligned: K1's
+    4-byte cp.async branch)."""
     from repro_torch.kernels.csr import ROW_SEGMENT
 
     def skewed(n, e):
@@ -351,14 +361,16 @@ def edge_cases(rng):
     hub = np.sort(np.concatenate([np.full(5 * ROW_SEGMENT + 3, 11),
                                   rng.integers(0, 300, 4000)]))
     hub = hub.astype(np.int32)
-    cases.append(("hub", rng.integers(0, 300, hub.size).astype(np.int32),
-                  hub, 300, 1))
+    hub_snd = rng.integers(0, 300, hub.size).astype(np.int32)
+    cases.append(("hub", hub_snd, hub, 300, 1))
+    cases.append(("hub D=400", hub_snd, hub, 300, 400))
     for name, recv, n in tile_receivers():
         cases.append((name, rng.integers(0, n, recv.size).astype(np.int32),
                       recv, n, 1))
-    for d in (1, 5, 16, 128, 300):
+    for d in (1, 2, 3, 5, 16, 20, 128, 204, 300, 400):
         cases.append((f"pareto D={d}", *skewed(3000, 40000), 3000, d))
-    return cases
+    cases.append(("pareto D=5 table[1:]", *skewed(3000, 40000), 3000, 5))
+    return [c + (1 if c[0].endswith("[1:]") else 0,) for c in cases]
 
 
 def kernel_parity_cases(recs, rng):
@@ -369,11 +381,15 @@ def kernel_parity_cases(recs, rng):
     from repro_torch.kernels.segsum.ops import segment_sum_sorted
     from repro_torch.kernels.segsum.ref import segment_sum_sorted_ref
     k1, k2, k3 = recs[:3]
-    for name, snd, recv, n, d in edge_cases(rng):
+    for name, snd, recv, n, d, offset in edge_cases(rng):
         es = EdgeSet.build(snd, recv, n, device="cuda")
         e = snd.size
         feat = torch.from_numpy(
-            rng.normal(size=(n, d)).astype(np.float32)).cuda()
+            rng.normal(size=(n + offset, d)).astype(np.float32)).cuda()
+        feat = feat[offset:]        # a view: K1 reads it where it starts
+        if offset:
+            expect(feat.data_ptr() % 16 != 0,
+                   f"K1 {name}: the view is not 16-byte aligned")
         w = torch.from_numpy(rng.normal(size=e).astype(np.float32)).cuda()
         w_pad = torch.nn.functional.pad(w, (0, es.senders.shape[0] - e))
         # "alternate": every other 128-row block active, so K1's tiles mix
@@ -411,13 +427,59 @@ def kernel_parity_cases(recs, rng):
             k3.compare(f"{name} {dt.__name__}", k.cpu(), p, bitwise=True)
 
 
+#: K1's whole-output cases with more column items than the card holds
+#: warps at once (a warp then takes several items, claimed in turn, and
+#: its ring runs across their boundaries): (N, E, D)
+K1_MANY_ITEMS = ((500_000, 16_000_000, 20), (500_000, 16_000_000, 204))
+
+
+def k1_many_items_cases(k1, rng):
+    """K1 at D >= 2 on power-law graphs of 16 M edges (~16,000 column
+    items, some rows longer than one segment), held to the bit on the whole
+    output under the four masks against its plain version on the host.
+    The plain rows do not depend on the mask (it zeroes the rows of
+    inactive blocks after the sums), so it runs once a graph."""
+    from repro_torch.kernels.gas.ops import (EdgeSet, active_row_blocks,
+                                             gather_combine)
+    for n, e, d in K1_MANY_ITEMS:
+        # power-law degrees of mean ~36 (the longest rows ~10^5 edges)
+        deg = ((rng.pareto(1.5, n) + 1) * 12).astype(np.int64)
+        recv = np.repeat(np.arange(n, dtype=np.int32), deg)[:e]
+        recv = np.concatenate([recv, np.full(e - recv.size, n - 1, np.int32)])
+        snd = rng.integers(0, n, e).astype(np.int32)
+        es = EdgeSet.build(snd, recv, n, device="cuda")
+        feat = torch.from_numpy(
+            rng.normal(size=(n, d)).astype(np.float32)).cuda()
+        w = torch.from_numpy(rng.normal(size=e).astype(np.float32)).cuda()
+        w_pad = torch.nn.functional.pad(w, (0, es.senders.shape[0] - e))
+        items = es.segments.column_items(d)
+        log(f"K1 many items: N={n} E={e} D={d} items={items.n_items} "
+            f"segments={es.segments.n_segments} rows of 2+ segments="
+            f"{items.n_multi}")
+        plain = k1_plain_on_cpu(feat, w_pad, es, None)
+        rows_blk = np.arange(n) // 128
+        for mname, mask in (("all", np.ones(n, bool)),
+                            ("30%", rng.random(n) < 0.3),
+                            ("alternate", rows_blk % 2 == 0),
+                            ("none", np.zeros(n, bool))):
+            blk = active_row_blocks(torch.from_numpy(mask).cuda())
+            on = torch.repeat_interleave(blk.cpu().bool(), 128)[:n]
+            want = torch.where(on[:, None], plain, torch.zeros_like(plain))
+            k = gather_combine(feat, w, es, block_active=blk)
+            k1.compare(f"many items N={n} E={e} D={d} mask={mname}", k.cpu(),
+                       want, bitwise=True)
+        del es, feat, w, w_pad, plain
+        torch.cuda.empty_cache()
+
+
 def k1_plain_on_cpu(feat, w_pad, es, blk):
     """K1's plain version on the host: its sequential ``index_add_`` fixes
     the order K1 reproduces (on the card ``index_add_`` adds with atomics,
     in no fixed order)."""
     from repro_torch.kernels.gas.ref import gather_combine_ref
     return gather_combine_ref(feat.cpu(), w_pad.cpu(), es.senders.cpu(),
-                              es.receivers.cpu(), es.n_vertices, blk.cpu())
+                              es.receivers.cpu(), es.n_vertices,
+                              None if blk is None else blk.cpu())
 
 
 def on_host(seg):
@@ -457,11 +519,15 @@ def time_k1(rec, es, w, rng):
     run_l = lambda: torch.sparse.mm(a, feat)
     rec.against_library(run_k(), run_l())
     tiles = es.segments.tiles
+    gather_bytes = 4 * e * d
     rec.time(run_k, run_p, run_l,
              4 * (2 * e + 2 * n * d + es.n_row_blocks) + row_ptr_bytes(n),
              2 * e * d, f"N={n} D={d} E={e} segments="
              f"{es.segments.n_segments} (largest color) tiles={tiles.n_tiles}"
              f" (partial {tiles.n_partial}) multi rows={tiles.n_multi}")
+    rec.times["gather_tb_per_s"] = gather_bytes / rec.times["ms"] / 1e9
+    log(f"K1 main shape: effective gather {rec.times['gather_tb_per_s']:.3f} "
+        f"TB/s (per-edge gather bytes over kernel time)")
     profile_window("K1 main shape (10 calls)",
                    lambda: [run_k() for _ in range(10)], "k1_profile.txt")
 
@@ -590,6 +656,9 @@ def profile_window(label, fn, out_name):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a first small kernel: the window's first launch was missing from
+        # the device records
+        torch.ones(1, device="cuda").add_(1)
         fn()
         torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0)
@@ -1450,6 +1519,10 @@ LOCK_MAX_STEPS = 20_000
 #: the plain K1 at D >= 2 materializes [E, D] messages (up to 320 GB at
 #: D 400 on the Netflix set): it is timed edges-chunk by edges-chunk
 PLAIN_CHUNK = 1 << 22
+# K1's slice widths to time beside the chosen ones: the full width, then
+# narrower (multiples of 4 columns)
+SLICE_SWEEP_D400 = (400, 200, 96, 16)
+SLICE_SWEEP_D204 = (204, 104, 52, 16)
 #: K1 at D >= 2 is held to the bit, against its plain version run on the
 #: host, on sampled rows: the longest rows, every machine's first and last
 #: own rows, and random rows (a row's sum reads only its own edges)
@@ -1622,12 +1695,14 @@ def active_csr(es, w, blk, n_src):
                                    check_invariants=False), int(keep.sum())
 
 
-def time_k1_stacked(rec, label, eng, state, leaf, active, rng):
+def time_k1_stacked(rec, label, eng, state, leaf, active, rng, sweep=()):
     """K1 at a dist path's shape: the stacked set of every machine, one
     leaf's features of the [own; ghost] table and its weights, the blocks
-    of a first sweep's first phase active.  Held to the bit against its
-    plain version on the host on sampled rows; timed beside the plain
-    arithmetic (chunked) and ``torch.sparse.mm``."""
+    of ``active`` (one phase of a first sweep) active.  Held to the bit
+    against its plain version on the host on sampled rows; timed beside the
+    plain arithmetic (chunked) and ``torch.sparse.mm``; its effective
+    gather bandwidth logged (per-edge gather bytes over its time).
+    ``sweep``: slice widths to time it at as well (``slice_sweep``)."""
     from repro_torch.core.update import fused_edge_weight
     from repro_torch.kernels.gas.gas import gas_gather_combine_cuda
     from repro_torch.kernels.gas.ops import active_row_blocks
@@ -1663,9 +1738,45 @@ def time_k1_stacked(rec, label, eng, state, leaf, active, rng):
              f"{label}: N={n} D={d} E={es.n_edges} (stacked, "
              f"{lay.n_machines} machines) active edges={e_act} distinct "
              f"senders={n_snd} segments={es.segments.n_segments}; per-edge "
-             f"gather {gather_bytes / 1e9:.2f} GB", plain_reps=1, main=False)
-    rec.other[-1]["per_edge_gather_bytes"] = gather_bytes
-    return rec.other[-1]
+             f"gather {gather_bytes / 1e9:.2f} GB; slice width "
+             f"{es.segments.column_items(d).width}",
+             plain_reps=1, main=False)
+    row = rec.other[-1]
+    row["gather_tb_per_s"] = gather_bytes / row["ms"] / 1e9
+    row["library_gather_tb_per_s"] = gather_bytes / row["library_ms"] / 1e9
+    log(f"{label}: effective gather {row['gather_tb_per_s']:.3f} TB/s "
+        f"(torch.sparse.mm {row['library_gather_tb_per_s']:.3f}; the per-edge "
+        f"gather, {gather_bytes} bytes, at HBM's 3.35 TB/s alone takes "
+        f"{gather_bytes / HBM_BYTES_PER_S * 1e3:.4g} ms)")
+    if sweep:
+        row["slice_sweep"] = slice_sweep(label, feat, w, es, blk, out, sweep)
+    return row
+
+
+def slice_sweep(label, feat, w, es, blk, want, widths):
+    """K1 at one forced slice width after another (narrower slices keep a
+    smaller part of the table in play, for the L2 cache) and, at rows of at
+    most 128 bytes, at the chosen width with cp.async.bulk forced in place
+    of 16-byte cp.async pieces, each equal to the bit to the chosen output
+    ``want`` and timed: what narrower slices and the copy mode buy.  The
+    tables are built here and dropped."""
+    from repro_torch.kernels.csr import ColumnItems
+    from repro_torch.kernels.gas.gas import launch_cols
+    seg, d = es.segments, feat.shape[1]
+    log(f"{label}: the chosen slice width is {seg.column_items(d).width}")
+    out = {}
+    runs = [(f"width {width}", ColumnItems.build(seg, d, width), -1)
+            for width in widths]
+    if 4 * d <= 128:
+        runs.append(("copy bulk", seg.column_items(d), 0))
+    for name, items, mode in runs:
+        run = lambda: launch_cols(feat, w, es.senders, seg, blk, items, mode)
+        same = torch.equal(run().view(torch.int32), want.view(torch.int32))
+        expect(same, f"{label}: K1 at {name} equals the chosen output to "
+               f"the bit")
+        out[name] = ms = cuda_ms(run, queued=True)
+        log(f"{label}: K1 at {name} ({items.n_items} items): {ms:.4g} ms")
+    return out
 
 
 def time_k2_stacked(rec, label, eng, active, rng):
@@ -1780,12 +1891,17 @@ def netflix_als(recs, rng, n_ratings):
     out["layout"] = layout_line("als", eng)
     out["rmse_before"] = (als_rmse(g, True), als_rmse(g, False))
     state = eng.init()
-    active = torch.logical_and(eng._t["own_mask"], sweep_mask(
-        eng._t["colors_own"], state.prio, DIST_TOLERANCE, 0))
+    phases = [torch.logical_and(eng._t["own_mask"], sweep_mask(
+        eng._t["colors_own"], state.prio, DIST_TOLERANCE, color))
+        for color in (0, 1)]
     leaves = dict(zip(("xxt", "rx"), eng._gas_leaves))
-    k1_rows = [time_k1_stacked(recs[0], f"als {name}", eng, state, leaf,
-                               active, rng) for name, leaf in leaves.items()]
-    k2_row = time_k2_stacked(recs[1], "als", eng, active, rng)
+    # a sweep launches K1 once a leaf a phase: users (phase 1) gather movie
+    # rows, movies (phase 2) user rows
+    k1_rows = [time_k1_stacked(
+        recs[0], f"als {name} phase {i + 1}", eng, state, leaf, active, rng,
+        sweep=SLICE_SWEEP_D400 if name == "xxt" else (ALS_D,))
+        for i, active in enumerate(phases) for name, leaf in leaves.items()]
+    k2_row = time_k2_stacked(recs[1], "als", eng, phases[0], rng)
     del state
     torch.cuda.empty_cache()
 
@@ -1800,7 +1916,7 @@ def netflix_als(recs, rng, n_ratings):
         f"device memory {peak:.2f} GiB")
     expect(l1 > 0 and l2 > 0, "als: K1 and K2 launched on the dist path")
     for row in k1_rows:
-        row["launches"] = l1 // len(leaves)
+        row["launches"] = l1 // len(k1_rows)
     k2_row["launches"] = l2
     factors = eng.vertex_data(state)["factor"]
     expect(bool(torch.isfinite(factors).all())
@@ -1815,8 +1931,11 @@ def netflix_als(recs, rng, n_ratings):
         f"{out['rmse_after'][0]:.4f}/{out['rmse_after'][1]:.4f}")
     expect(out["rmse_after"][0] < out["rmse_before"][0],
            "als: train RMSE fell")
+    before = k1c.launches
     out["profile"] = profile_window("als: one sweep", lambda: eng.step(state),
                                     "als_profile.txt")
+    log(f"als: one sweep: K1 launched {k1c.launches - before} times in the "
+        f"profiled window (compare the profiler's rows)")
     out.update(sweeps=sweeps, peak_gib=peak, launches_k1=l1,
                launches_k2=l2)
     del eng, state, factors
@@ -1879,7 +1998,8 @@ def ner_coem(recs, rng):
     active = torch.logical_and(eng._t["own_mask"], sweep_mask(
         eng._t["colors_own"], state.prio, DIST_TOLERANCE, 0))
     k1_row = time_k1_stacked(recs[0], "coem p", eng, state,
-                             eng._gas_leaves[0], active, rng)
+                             eng._gas_leaves[0], active, rng,
+                             sweep=SLICE_SWEEP_D204)
     del state
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2055,6 +2175,7 @@ def main() -> int:
         ]
         if local:
             kernel_parity_cases(recs, rng)
+            k1_many_items_cases(recs[0], rng)
         if models:
             model_kernel_cases(recs[3], recs[4], rng)
         log(f"elapsed {time.perf_counter() - t_all:.1f} s")

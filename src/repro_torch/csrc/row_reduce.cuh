@@ -8,8 +8,12 @@
 // the tile's terms in shared memory, coalesced, then one thread adds each
 // segment (K3: each segment and column) in edge order from 0.  A row of one
 // segment is written in that launch; a row of two or more leaves partial
-// sums, and a second launch adds them in segment order.  K1 at D >= 2 and
-// K3 at D > kThreads keep one warp a segment (lanes over the columns).
+// sums, and a second launch adds them in segment order.  K1 at D >= 2
+// streams runs of segments (csr.py ColumnItems) through an asynchronous
+// ring of gathered rows (cp.async.bulk and mbarriers), one warp a run and
+// column slice, each lane adding its columns of each segment in edge order
+// (gas_gather_combine.cu); K3 at D > kThreads keeps one warp a segment
+// (lanes over the columns).
 // Each add is one correctly rounded add and each product one correctly
 // rounded multiply (__fadd_rn / __fmul_rn keep nvcc from contracting them
 // into an FMA).  That is the order and rounding of the plain PyTorch

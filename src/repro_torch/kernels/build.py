@@ -35,9 +35,13 @@ _L, _F = ctypes.c_int64, ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p (a 64-bit value).
 SIGNATURES = {
     # feat, w, snd, row_ids, row_seg, seg_beg, seg_row, block_active,
-    # tile_beg, tile_end, multi_rows, partial, out, n_rows, n_listed, n_seg,
-    # d, row_block, n_tiles, n_partial, n_multi, tile_cap, tile_segs, stream
-    "gas_gather_combine": (_P,) * 13 + (_I,) * 10 + (_P,),
+    # tile_beg, tile_end, multi_rows, partial, out, n_rows, row_block,
+    # n_tiles, n_partial, n_multi, tile_cap, tile_segs, stream
+    "gas_gather_combine": (_P,) * 13 + (_I,) * 7 + (_P,),
+    # feat, w, snd, row_ids, row_seg, seg_beg, seg_row, block_active, items,
+    # multi_rows, partial, counter, out, n_rows, n_seg, d, row_block,
+    # n_items, n_multi, stage_floats, copy, stream
+    "gas_gather_combine_cols": (_P,) * 13 + (_I,) * 8 + (_P,),
     # contrib, prio, consume, w, snd, row_ids, row_seg, seg_beg, seg_row,
     # tile_beg, tile_end, multi_rows, partial, out, n_rows, n_tiles,
     # n_partial, n_multi, tile_cap, tile_segs, stream

@@ -25,6 +25,10 @@ tile's terms in shared memory and one thread adds each of its segments
 Runs of short segments of one-segment rows share a tile; every other
 segment is a tile of its own.  The tiles change who adds, not the order of
 the adds.
+
+K1 at D >= 2 reads ``ColumnItems``: runs of segments in row order, each
+summed by one warp over all the columns (over slices of them, slice by
+slice, where D exceeds what a warp takes).
 """
 from __future__ import annotations
 
@@ -48,6 +52,17 @@ ROW_SEGMENT = 2048
 SHORT_SEGMENT = 128
 TILE_SEGMENTS = 256
 TILE_WINDOW = 1024
+#: K1's column items (D >= 2, ``ColumnItems``; the constants the kernel
+#: shares are mirrored in csrc/gas_gather_combine.cu).  A warp takes an
+#: item: a run of consecutive segments that start in one aligned span of
+#: ``COL_ITEM_EDGES`` edges, over one slice of at most ``COL_MAX_WIDTH``
+#: columns (up to 16 a lane; D itself where it fits), and streams its
+#: edges through a ring of stages of ``col_chunk(width)`` edges (about
+#: ``COL_STAGE_BYTES`` of gathered rows, at most ``COL_CHUNK_EDGES``).
+COL_MAX_WIDTH = 512
+COL_STAGE_BYTES = 8 * 1024
+COL_CHUNK_EDGES = 32
+COL_ITEM_EDGES = 1024
 
 
 class TileShape(NamedTuple):
@@ -123,6 +138,17 @@ class RowSegments:
     def tiles(self) -> "TileTables":
         """K1's and K2's tile tables (D = 1), built on first use."""
         return self.tiles_for(TileShape())
+
+    @functools.cached_property
+    def _column_cache(self) -> dict:
+        return {}
+
+    def column_items(self, d: int) -> "ColumnItems":
+        """K1's column items at ``d`` columns (D >= 2), built on first use
+        and kept."""
+        if d not in self._column_cache:
+            self._column_cache[d] = ColumnItems.build(self, d)
+        return self._column_cache[d]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -201,6 +227,101 @@ def tile_tables(row_seg: np.ndarray, seg_beg: np.ndarray,
         if tile_beg.size else 0
     return (tile_beg, tile_end, int((~single).sum()), cap,
             np.flatnonzero(n_seg_row > 1))
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def col_chunk(width: int):
+    """Edges a ring stage holds at a slice of ``width`` columns."""
+    return np.minimum(COL_CHUNK_EDGES, np.maximum(
+        1, COL_STAGE_BYTES // (4 * np.asarray(width))))
+
+
+def slice_width(d: int) -> int:
+    """The slice width at ``d`` columns: the full width where it fits
+    ``COL_MAX_WIDTH``, else the fewest equal slices that fit, each a
+    multiple of 4 columns (16 bytes) wide."""
+    return min(d, 4 * _cdiv(_cdiv(d, _cdiv(d, COL_MAX_WIDTH)), 4))
+
+
+#: the columns of ``ColumnItems.items``
+ITEM_FIELDS = ("seg_lo", "seg_hi", "c0", "edge_lo", "edge_hi", "row_lo",
+               "row_hi", "width")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ColumnItems:
+    """K1's work list at D >= 2 over one ``RowSegments``, on its device.
+
+    ``items`` [n_items, 8] i32, one row an item (``ITEM_FIELDS``): the
+    warp that takes it sums segments ``[seg_lo, seg_hi)``, each in edge
+    order from 0, over the ``width`` columns from ``c0``; their edges are
+    ``[edge_lo, edge_hi)`` and their rows ``[row_lo, row_hi]``.  An item
+    is a run of the segments that start in one aligned span of
+    ``COL_ITEM_EDGES`` edges.  The items go slice by slice, each slice
+    over all the segments in row order.  ``width``: the slice width.
+    ``stage_floats``: the floats of gathered rows a ring stage holds at
+    that width (a multiple of 4).  ``multi_rows`` [n_multi] i32: the listed
+    rows of two or more segments, whose partials the combine pass adds.
+    """
+
+    n_items: int
+    n_multi: int
+    stage_floats: int
+    width: int
+    items: torch.Tensor
+    multi_rows: torch.Tensor
+
+    @staticmethod
+    def build(seg: RowSegments, d: int,
+              width: Optional[int] = None) -> "ColumnItems":
+        """The items of ``seg`` at ``d`` columns, in slices of
+        ``slice_width(d)`` columns, or of ``width`` where that is narrower
+        (what ``chip_smoke.py`` measures narrower slices with)."""
+        if d < 2:
+            raise ValueError(f"column items take D >= 2, got {d}")
+        full = slice_width(d)
+        if width is not None and width < full and width % 4:
+            raise ValueError(f"a slice narrower than {full} columns must be "
+                             f"a multiple of 4, got {width}")
+        width = full if width is None else min(width, full)
+        items = item_table(seg.seg_beg.cpu().numpy(),
+                           seg.seg_row.cpu().numpy(), d, width)
+        n_seg_row = np.diff(seg.row_seg.cpu().numpy())
+        dev = seg.seg_beg.device
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+        # the last slice may be narrower, and then holds more edges a stage
+        used = np.array([width, d - (d - 1) // width * width])
+        return ColumnItems(
+            n_items=len(items), n_multi=int((n_seg_row > 1).sum()),
+            stage_floats=int((4 * _cdiv(col_chunk(used) * used, 4)).max()),
+            width=width, items=t(items),
+            multi_rows=t(np.flatnonzero(n_seg_row > 1)))
+
+
+def item_table(seg_beg: np.ndarray, seg_row: np.ndarray, d: int,
+               width: int) -> np.ndarray:
+    """``ColumnItems.items`` [n_items, 8] (i64 on the host) at slices of
+    ``width`` columns; vectorised over the segments."""
+    seg_beg = np.asarray(seg_beg, np.int64)
+    seg_row = np.asarray(seg_row, np.int64)
+    starts = seg_beg[:-1]
+    lo = np.flatnonzero(np.diff(starts // COL_ITEM_EDGES, prepend=-1))
+    hi = np.append(lo[1:], starts.size)[:lo.size]
+    runs = np.stack([lo, hi, np.zeros_like(lo), seg_beg[lo], seg_beg[hi],
+                     seg_row[lo], seg_row[hi - 1], np.zeros_like(lo)], axis=1)
+    out = [np.zeros((0, len(ITEM_FIELDS)), np.int64)]
+    for c0 in range(0, d, width):
+        part = runs.copy()
+        part[:, 2] = c0
+        part[:, 7] = min(width, d - c0)
+        out.append(part)
+    return np.concatenate(out)
 
 
 def segment_tables(receivers: np.ndarray,

@@ -340,7 +340,7 @@ def _masks(rng, n):
 
 
 class TestGatherCombine:
-    @pytest.mark.parametrize("d", [1, 16, 128])
+    @pytest.mark.parametrize("d", [1, 16, 128, 20, 204, 400])
     @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
     def test_plain_matches_jax_ref(self, case, d):
         _, snd, recv, n = case
@@ -712,7 +712,7 @@ class TestOnCard:
         if not torch.cuda.is_available():
             pytest.skip("needs a CUDA card")
 
-    @pytest.mark.parametrize("d", [1, 16, 128])
+    @pytest.mark.parametrize("d", [1, 16, 128, 2, 20, 204, 400])
     @pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
     def test_kernels_equal_plain(self, case, d):
         _, snd, recv, n = case
@@ -739,6 +739,64 @@ class TestOnCard:
                                         segments=es.segments)]
         for k, p in zip(out["cuda"], out["cpu"]):
             assert torch.equal(k.cpu(), p)
+
+    @pytest.mark.parametrize("d", [5, 400])
+    def test_k1_table_view_equals_plain(self, d):
+        """K1 on a feature table that starts one row into a larger one
+        (``table[1:]``, still contiguous): at D 5 its rows are not 16-byte
+        aligned and take the 4-byte cp.async branch, at D 400 the bulk
+        copies; equal to the plain version on the host to the bit under
+        every mask."""
+        for name in ("pareto", "hub"):
+            _, snd, recv, n = next(c for c in CASES if c[0] == name)
+            rng = np.random.default_rng(d)
+            table = torch.from_numpy(rng.normal(size=(n + 1, d)).astype(
+                np.float32))
+            w = torch.from_numpy(rng.normal(size=snd.size).astype(
+                np.float32))
+            es = tops.EdgeSet.build(snd, recv, n, device="cuda")
+            hs = tops.EdgeSet.build(snd, recv, n, device="cpu")
+            feat = table.cuda()[1:]
+            assert feat.is_contiguous() and feat.data_ptr() % 16 == 4 * d % 16
+            for mask in _masks(rng, n).values():
+                m = torch.ones(n, dtype=torch.bool) if mask is None else \
+                    torch.from_numpy(mask)
+                got = tops.gather_combine(
+                    feat, w.cuda(), es,
+                    block_active=tops.active_row_blocks(m.cuda()))
+                want = tops.gather_combine(
+                    table[1:], w, hs, block_active=tops.active_row_blocks(m))
+                assert torch.equal(got.cpu().view(torch.int32),
+                                   want.view(torch.int32)), name
+
+    @pytest.mark.parametrize("d", [20, 204])
+    def test_k1_many_items_equals_plain(self, d):
+        """K1 at D >= 2 over ~8,000 column items, more than the card holds
+        warps at once: each warp claims several items and its ring runs
+        across their boundaries.  Equal to the plain version on the host to
+        the bit under every mask."""
+        rng = np.random.default_rng(d)
+        n, e = 250_000, 8_000_000
+        deg = ((rng.pareto(1.5, n) + 1) * 12).astype(np.int64)
+        recv = np.repeat(np.arange(n, dtype=np.int32), deg)[:e]
+        recv = np.concatenate([recv, np.full(e - recv.size, n - 1,
+                                             np.int32)])
+        snd = rng.integers(0, n, e).astype(np.int32)
+        feat = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+        w = torch.from_numpy(rng.normal(size=e).astype(np.float32))
+        es = tops.EdgeSet.build(snd, recv, n, device="cuda")
+        hs = tops.EdgeSet.build(snd, recv, n, device="cpu")
+        assert es.segments.column_items(d).n_items > 4000
+        for mask in _masks(rng, n).values():
+            m = torch.ones(n, dtype=torch.bool) if mask is None else \
+                torch.from_numpy(mask)
+            got = tops.gather_combine(
+                feat.cuda(), w.cuda(), es,
+                block_active=tops.active_row_blocks(m.cuda()))
+            want = tops.gather_combine(
+                feat, w, hs, block_active=tops.active_row_blocks(m))
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32))
 
     def test_scatter_subsets_equal_full(self):
         """K2 over each sender-color subset equals K2 over the full set and
